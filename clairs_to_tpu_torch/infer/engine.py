@@ -1,0 +1,337 @@
+"""Dual-network inference engine.
+
+PyTorch counterpart of clairs_to_tpu/infer/engine.py, with the same API:
+
+    (B,33,34) AFF counts, (B,33,34) NEG counts, coverages
+      -> depth rescale (scale by 50/cov when cov>50)
+      -> CvT logits  +  BiGRU logits
+      -> per-allele softmax (class-1 prob)
+      -> host float64 posterior + QUAL (ops/posterior.py)
+
+Batches are padded to a static ``device_batch``; padded rows are dropped on
+the host.  The wire format is the JAX engine's: one packed int16 tensor
+(AFF counts plus a coverage row) and an int16 NEG-minus-AFF delta, added
+in float32 on the device before the rescale; a float32 path remains for
+non-integral inputs.  On CUDA the host buffers are pinned, the copies are
+``non_blocking`` and each slice records one CUDA event that ``result()``
+waits on; on the CPU everything runs synchronously.
+"""
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from clairs_to_tpu_torch import config as cfg
+from clairs_to_tpu_torch.models import bigru, cvt
+from clairs_to_tpu_torch.models.checkpoint import params_from_jax
+from clairs_to_tpu_torch.ops import posterior as post
+
+
+@dataclass
+class BatchResult:
+    """Host-side per-candidate results (valid rows only)."""
+
+    p_aff: np.ndarray        # (N, n_alleles) float64 — class-1 softmax of AFF, %.8f-rounded
+    p_neg: np.ndarray        # (N, n_alleles) float64 — class-1 softmax of NEG, %.8f-rounded
+    posterior: np.ndarray    # (N, n_alleles) float64 — exact host posterior
+    forward_acgt: np.ndarray   # (N, 4) int — FAU..FTU recovered strand counts
+    reverse_acgt: np.ndarray   # (N, 4) int — RAU..RTU
+
+
+def resolve_device(device=None) -> torch.device:
+    """``cuda`` unless the caller asks for the CPU; raises without a GPU."""
+    device = torch.device(device if device is not None else "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "(--device cpu) to run on the CPU")
+    return device
+
+
+def _rescale(x, coverage, min_rescale_cov):
+    # predict.py:177-197: multiply all channels by min_rescale_cov/cov when
+    # cov > min_rescale_cov (float32, matching the reference).  full_like
+    # keeps it a true division: torch's ``scalar / tensor`` multiplies by a
+    # reciprocal, which rounds differently
+    scale = torch.where(coverage > min_rescale_cov,
+                        torch.full_like(coverage, min_rescale_cov) / coverage,
+                        torch.ones_like(coverage))
+    return x * scale[:, None, None]
+
+
+def recover_strand_counts(aff_raw_center):
+    """Recover FAU..FTU / RAU..RTU from the raw AFF tensor's center row.
+
+    The tensor encodes the reference base's count as the negated sum of its
+    ACGT block; every negative entry in a row becomes -(row sum).
+
+    Args:
+      aff_raw_center: (B, 34) float/int — the unrescaled center position row.
+    Returns:
+      (forward (B,4) int64, reverse (B,4) int64)
+    """
+    out = []
+    for sl in (slice(0, 4), slice(9, 13)):
+        block = np.asarray(aff_raw_center[:, sl], dtype=np.float64)
+        row_sums = block.sum(axis=1)
+        fixed = np.where(block < 0, -row_sums[:, None], block)
+        out.append(np.rint(fixed).astype(np.int64))
+    return out[0], out[1]
+
+
+def _as_model(params, kind, config):
+    """An nn.Module as given, or one built from a JAX parameter pytree."""
+    if isinstance(params, nn.Module):
+        return params
+    model = cvt.CvT(config) if kind == "cvt" else bigru.BiGRU(config)
+    model.load_state_dict(params_from_jax(params, kind, config))
+    return model
+
+
+class InferenceEngine:
+    """Dual-network engine for one variant type (snv|indel).
+
+    ``aff_params``/``neg_params``: a ``CvT``/``BiGRU`` module, or the JAX
+    package's parameter pytree with numpy leaves.  ``use_kernel``: None runs
+    the GRU recurrence through the CUDA kernel on CUDA (the plain loop on
+    the CPU); False forces the plain loop.  ``matmul_precision="highest"``
+    turns TF32 off for matmuls and cuDNN convolutions (parity mode).
+    """
+
+    def __init__(
+        self,
+        aff_params,
+        neg_params,
+        likelihood: post.LikelihoodData,
+        mode: str = "snv",
+        device_batch: int = cfg.DEVICE_BATCH,
+        min_rescale_cov: float = float(cfg.MIN_RESCALE_COV),
+        cvt_config=None,
+        bigru_config=None,
+        use_kernel: Optional[bool] = None,
+        matmul_precision: str = "highest",
+        device=None,
+    ):
+        assert mode in ("snv", "indel")
+        self.mode = mode
+        self.device = resolve_device(device)
+        self.cvt_config = cvt_config or (
+            cvt.SNV_CVT_CONFIG if mode == "snv" else cvt.INDEL_CVT_CONFIG)
+        self.bigru_config = bigru_config or (
+            bigru.SNV_BIGRU_CONFIG if mode == "snv" else bigru.INDEL_BIGRU_CONFIG)
+        self.n_alleles = len(self.cvt_config.alleles)
+        self.device_batch = device_batch
+        self.min_rescale_cov = min_rescale_cov
+        self.use_kernel = use_kernel
+        self.matmul_precision = matmul_precision
+        self.likelihood = likelihood
+        if self.device.type == "cuda":
+            tf32 = matmul_precision != "highest"
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            torch.backends.cudnn.allow_tf32 = tf32
+        self.aff_model = _as_model(aff_params, "cvt", self.cvt_config).to(self.device).eval()
+        self.neg_model = _as_model(neg_params, "bigru", self.bigru_config).to(self.device).eval()
+        self._lik_mat = torch.as_tensor(likelihood.matrices, dtype=torch.float32,
+                                        device=self.device)
+        self._aff_edges = torch.as_tensor(likelihood.aff_edges, dtype=torch.float32,
+                                          device=self.device)
+        self._neg_edges = torch.as_tensor(likelihood.neg_edges, dtype=torch.float32,
+                                          device=self.device)
+        self._zero_delta = None   # device-resident int16 zeros, lazy
+
+    # ---- device programs ------------------------------------------------
+    def _net_probs(self, x_aff, x_neg, cov_aff, cov_neg):
+        x_aff = _rescale(x_aff.float(), cov_aff, self.min_rescale_cov)
+        x_neg = _rescale(x_neg.float(), cov_neg, self.min_rescale_cov)
+        probs_aff = torch.softmax(self.aff_model(x_aff), dim=-1)
+        probs_neg = torch.softmax(self.neg_model(x_neg, use_kernel=self.use_kernel), dim=-1)
+        return probs_aff, probs_neg
+
+    @staticmethod
+    def _stack_p1(probs_aff, probs_neg):
+        # (B, 2, A) class-1 probabilities: all the host posterior consumes
+        return torch.stack((probs_aff[..., 1], probs_neg[..., 1]), dim=1)
+
+    @torch.inference_mode()
+    def _forward_full(self, x_aff, x_neg, cov_aff, cov_neg):
+        return self._stack_p1(*self._net_probs(x_aff, x_neg, cov_aff, cov_neg))
+
+    @torch.inference_mode()
+    def _forward_delta(self, packed, x_delta):
+        """``packed`` (B,34,34) int16: rows 0-32 the AFF counts, row 33
+        columns 0/1 the AFF/NEG coverages; ``x_delta`` (B,33,34) int16 =
+        NEG - AFF.  The float32 add happens before the rescale, so the
+        result equals the full-view path for integral counts."""
+        x_aff = packed[:, :33, :].float()
+        cov_aff = packed[:, 33, 0].float()
+        cov_neg = packed[:, 33, 1].float()
+        x_neg = x_aff + x_delta.float()
+        return self._stack_p1(*self._net_probs(x_aff, x_neg, cov_aff, cov_neg))
+
+    @torch.inference_mode()
+    def _forward_fused(self, x_aff, x_neg, cov_aff, cov_neg):
+        probs_aff, probs_neg = self._net_probs(x_aff, x_neg, cov_aff, cov_neg)
+        posterior = post.posterior_probs_torch(
+            probs_aff[..., 1], probs_neg[..., 1], self._lik_mat, self._aff_edges,
+            self._neg_edges)
+        best_p, best = torch.max(posterior, dim=1)
+        return posterior, best, post.quality_score_torch(best_p)
+
+    # ---- host API -------------------------------------------------------
+    def _pad(self, arr, value=0):
+        n = arr.shape[0]
+        if n == self.device_batch:
+            return arr
+        pad_width = [(0, self.device_batch - n)] + [(0, 0)] * (arr.ndim - 1)
+        return np.pad(arr, pad_width, constant_values=value)
+
+    def _put(self, arr):
+        """Host numpy -> device tensor (pinned, non-blocking on CUDA)."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _intify(self, arr):
+        """int16 wire encoding of a count tensor, or None when unsafe."""
+        if arr.dtype == np.int16:
+            return arr
+        if arr.dtype.kind in "iu":
+            if arr.size and (int(arr.max()) >= 32768 or int(arr.min()) < -32768):
+                return None
+            return arr.astype(np.int16)
+        if arr.dtype.kind == "f":
+            xi = arr.astype(np.int16)
+            if bool((xi == arr).all()):
+                return xi
+            return None
+        return None
+
+    def _zero_delta_dev(self):
+        """Device-resident int16 zero delta for identical AFF/NEG views."""
+        if self._zero_delta is None:
+            self._zero_delta = torch.zeros((self.device_batch, 33, 34), dtype=torch.int16,
+                                           device=self.device)
+        return self._zero_delta
+
+    def run_batch(self, x_aff, x_neg, cov_aff, cov_neg) -> BatchResult:
+        """Synchronous convenience wrapper over ``run_batch_async``."""
+        return self.run_batch_async(x_aff, x_neg, cov_aff, cov_neg).result()
+
+    def run_batch_async(self, x_aff, x_neg, cov_aff, cov_neg) -> "PendingBatch":
+        """Dispatch a batch; the returned PendingBatch's .result() waits.
+
+        Args: raw (unrescaled) count tensors (N,33,34) and coverages (N,).
+        Inputs larger than ``device_batch`` run in fixed-shape slices.
+        """
+        n = x_aff.shape[0]
+        identity = x_neg is x_aff
+        x_aff = np.asarray(x_aff)
+        cov_aff = np.asarray(cov_aff)
+        cov_neg = cov_aff if cov_neg is cov_aff else np.asarray(cov_neg)
+        xa16 = self._intify(x_aff)
+        ca16 = self._intify(cov_aff) if xa16 is not None else None
+        cn16 = (ca16 if cov_neg is cov_aff else
+                (self._intify(cov_neg) if ca16 is not None else None))
+        use_int = xa16 is not None and ca16 is not None and cn16 is not None
+        d16 = None
+        if use_int and not identity:
+            xn16 = self._intify(np.asarray(x_neg))
+            if xn16 is None:
+                use_int = False
+            else:
+                delta = xn16.astype(np.int32) - xa16
+                if delta.size and (int(delta.max()) >= 32768
+                                   or int(delta.min()) < -32768):
+                    use_int = False
+                else:
+                    d16 = delta.astype(np.int16)
+        if use_int:
+            # row 33 columns 2.. are never read: np.empty leaves them unset
+            packed = np.empty((n, 34, 34), np.int16)
+            packed[:, :33, :] = xa16
+            packed[:, 33, 0] = ca16
+            packed[:, 33, 1] = cn16
+        handles = []
+        for i in range(0, n, self.device_batch):
+            sl = slice(i, i + self.device_batch)
+            ni = min(self.device_batch, n - i)
+            if use_int:
+                pk = self._put(self._pad(packed[sl]))
+                xd = (self._zero_delta_dev() if d16 is None
+                      else self._put(self._pad(d16[sl])))
+                p1 = self._forward_delta(pk, xd)
+            else:
+                ca = self._put(self._pad(np.asarray(cov_aff[sl], np.float32), value=1))
+                cn = ca if cov_neg is cov_aff else self._put(
+                    self._pad(np.asarray(cov_neg[sl], np.float32), value=1))
+                xa = self._put(self._pad(np.asarray(x_aff[sl], np.float32)))
+                xn = xa if identity else self._put(
+                    self._pad(np.asarray(x_neg[sl], np.float32)))
+                p1 = self._forward_full(xa, xn, ca, cn)
+            event = None
+            if self.device.type == "cuda":
+                host = torch.empty(p1.shape, dtype=p1.dtype, pin_memory=True)
+                host.copy_(p1, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+                p1 = host
+            handles.append((ni, sl, p1, event))
+        return PendingBatch(self, handles, x_aff)
+
+    def _consume(self, n, x_aff_slice, p1) -> BatchResult:
+        # the reference round-trips probabilities through '%.8f' text between
+        # predict and call_variants; match that rounding so the float64
+        # posterior sees identical inputs
+        p1h = p1.numpy().astype(np.float64)
+        p_aff = np.round(p1h[:n, 0], 8)
+        p_neg = np.round(p1h[:n, 1], 8)
+        posterior = post.posterior_probs_np(p_aff, p_neg, self.likelihood)
+        fwd, rev = recover_strand_counts(
+            np.asarray(x_aff_slice)[:, cfg.FLANKING_BASE_NUM, :])
+        return BatchResult(p_aff=p_aff, p_neg=p_neg, posterior=posterior,
+                           forward_acgt=fwd, reverse_acgt=rev)
+
+    def run_batch_fused(self, x_aff, x_neg, cov_aff, cov_neg):
+        """Posterior, argmax and QUAL on the device; returns device tensors
+        for the padded batch."""
+        xa = self._put(self._pad(np.asarray(x_aff, np.float32)))
+        xn = self._put(self._pad(np.asarray(x_neg, np.float32)))
+        ca = self._put(self._pad(np.asarray(cov_aff, np.float32), value=1))
+        cn = self._put(self._pad(np.asarray(cov_neg, np.float32), value=1))
+        return self._forward_fused(xa, xn, ca, cn)
+
+
+class PendingBatch:
+    """A dispatched run_batch: device slices in flight, host copies queued."""
+
+    def __init__(self, engine, handles, x_aff):
+        self._engine = engine
+        self._handles = handles
+        self._x_aff = x_aff
+        self._result = None
+
+    def result(self) -> BatchResult:
+        if self._result is not None:
+            return self._result
+        parts = []
+        for (ni, sl, p1, event) in self._handles:
+            if event is not None:
+                event.synchronize()
+            parts.append(self._engine._consume(ni, self._x_aff[sl], p1))
+        if len(parts) == 1:
+            res = parts[0]
+        else:
+            res = BatchResult(
+                p_aff=np.concatenate([p.p_aff for p in parts]),
+                p_neg=np.concatenate([p.p_neg for p in parts]),
+                posterior=np.concatenate([p.posterior for p in parts]),
+                forward_acgt=np.concatenate([p.forward_acgt for p in parts]),
+                reverse_acgt=np.concatenate([p.reverse_acgt for p in parts]),
+            )
+        self._result = res
+        self._handles = None
+        self._x_aff = None
+        return res
