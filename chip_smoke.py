@@ -1,12 +1,16 @@
 """Smoke run of the PyTorch/CUDA port (clairs_to_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--prev-source OLD_GRU_CU]
 
 Phases, each fatal on failure:
   1. build the GRU kernel (csrc/gru.cu) from the checkout with nvcc;
   2. hold the kernel against its plain PyTorch version on the card
-     (H in {16, 128, 192}, B in {8192, 1000}, both directions) and time it
-     beside the plain version and cuDNN's torch.nn.GRU (a yardstick only);
+     (H in {16, 24, 128, 192}, B in {8192, 8191, 1000}, both directions) and
+     time it, with x_gates cold in L2, beside the plain version and cuDNN's
+     torch.nn.GRU (a yardstick only).
+     With --prev-source, an earlier gru.cu (the same C entry point, taking
+     W_hh^T unpacked) is built beside it and the two are timed in turns:
+     old, new, new, old;
   3. the engine's forward on the flagship ONT SNV and indel weights at
      device_batch 8192, with the kernel against the plain GRU;
   4. ``clairs_to_tpu_torch run -p ont`` end to end on a simulated 2 Mb ONT
@@ -17,10 +21,13 @@ the last line ``{"ok": true, "device": {...}}``.  Exits non-zero without a
 GPU.  Working files go under build/chip_smoke/ in the checkout.
 """
 
+import argparse
+import ctypes
 import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -32,7 +39,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
 ASSETS = os.path.join(REPO, "assets", "flagship_ont_snv")
 T = 33
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): TF32 on the tensor cores, fp32 outside
+# them, HBM3
+PEAK_TF32_FLOPS = 495e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 KERNEL_TOL = 1e-5     # kernel vs plain GRU outputs, fp32 both
@@ -70,13 +79,64 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def cold_ms(fn, iters=10):
+    """Median ms of single calls, each after a 128 MiB write that leaves none
+    of its inputs in the 50 MB L2, as the engine's input GEMM leaves x_gates."""
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+    fn()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(iters)]
+    for start, end in events:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(start.elapsed_time(end) for start, end in events)
+
+
 def gru_bound_ms(B, H):
     """Least time for one direction: each input read and output written once
-    against HBM, the h.W_hh FMAs against the fp32 peak (gate math not counted)."""
+    against HBM, the h.W_hh product against the TF32 tensor-core peak (gate
+    math not counted).  ``bound_fp32_ms`` prices the product at the fp32 rate
+    outside the tensor cores instead, the bound of the first kernel's PERF row."""
     bytes_ = 4 * (T * B * 3 * H + T * B * H + H * 3 * H + 3 * H)
     flops = 2.0 * T * B * H * 3 * H
-    by_bytes, by_ops = bytes_ / PEAK_BYTES * 1e3, flops / PEAK_FP32_FLOPS * 1e3
-    return max(by_bytes, by_ops), ("operations" if by_ops >= by_bytes else "bytes")
+    by_bytes, by_ops = bytes_ / PEAK_BYTES * 1e3, flops / PEAK_TF32_FLOPS * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="operations" if by_ops >= by_bytes else "bytes",
+                bound_fp32_ms=max(by_bytes, flops / PEAK_FP32_FLOPS * 1e3))
+
+
+def start_prev_build(src):
+    """Start nvcc on an earlier gru.cu; returns (process, library path)."""
+    from clairs_to_tpu_torch.ops import gru
+
+    so = os.path.join(WORK, "libgru_prev.so")
+    cmd = [gru._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+           "-shared", "-Xcompiler", "-fPIC", "-o", so, os.path.abspath(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so
+
+
+def load_prev(build):
+    """The earlier kernel as a function of (x_gates, w_hh_t, b_hh)."""
+    proc, so = build
+    diag, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the previous gru.cu:\n{diag}")
+    fn = ctypes.CDLL(so).gru_direction_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+    def run(xg, w, b):
+        steps, B, _ = xg.shape
+        out = torch.empty((steps, B, w.shape[0]), dtype=torch.float32, device=xg.device)
+        err = fn(xg.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), steps, B,
+                 w.shape[0], 0, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"previous gru kernel launch failed: cudaError {err}")
+        return out
+    return run
 
 
 def phase_build(gru):
@@ -88,14 +148,14 @@ def phase_build(gru):
             log(f"[build] {line.strip()}")
 
 
-def phase_kernel(gru, dev):
+def phase_kernel(gru, dev, prev=None):
     rng = np.random.default_rng(0)
     max_err, timings = 0.0, {}
-    for H in (16, 128, 192):
+    for H in (16, 24, 128, 192):
         bound = H ** -0.5
         w = torch.from_numpy(rng.uniform(-bound, bound, (H, 3 * H)).astype(np.float32)).to(dev)
         b = torch.from_numpy(rng.uniform(-bound, bound, 3 * H).astype(np.float32)).to(dev)
-        for B in (8192, 1000):
+        for B in (8192, 8191, 1000):
             xg = torch.from_numpy(rng.normal(size=(T, B, 3 * H)).astype(np.float32)).to(dev)
             for reverse in (False, True):
                 got = gru.gru_direction(xg, w, b, reverse=reverse)
@@ -112,11 +172,22 @@ def phase_kernel(gru, dev):
                 x_in = torch.randn(T, B, in_size, device=dev)
                 with torch.no_grad():
                     t = dict(
-                        kernel_ms=cuda_ms(lambda: gru.gru_direction(xg, w, b), 20),
+                        kernel_ms=cold_ms(lambda: gru.gru_direction(xg, w, b)),
                         plain_ms=cuda_ms(lambda: gru.gru_direction_plain(xg, w, b), 10),
                         library_ms=cuda_ms(lambda: lib(x_in), 20),
                     )
-                t["bound_ms"], t["bound_by"] = gru_bound_ms(B, H)
+                if prev is not None:
+                    err = (prev(xg, w, b) - gru.gru_direction(xg, w, b)).abs().max().item()
+                    if err > KERNEL_TOL:
+                        raise AssertionError(f"previous kernel disagrees at H={H} ({err:.3e})")
+                    turns = [cold_ms(lambda: prev(xg, w, b)),
+                             cold_ms(lambda: gru.gru_direction(xg, w, b)),
+                             cold_ms(lambda: gru.gru_direction(xg, w, b)),
+                             cold_ms(lambda: prev(xg, w, b))]
+                    t["turns_old_new_new_old_ms"] = turns
+                    t["prev_ms"] = (turns[0] + turns[3]) / 2
+                    t["kernel_ms"] = (turns[1] + turns[2]) / 2
+                t.update(gru_bound_ms(B, H))
                 timings[H] = t
                 log(f"[kernel] timing T={T} B={B} H={H}: " + json.dumps(t))
     return max_err, timings
@@ -253,7 +324,10 @@ def phase_end_to_end(card, genome_len):
                 launches=launches, genome_len=genome_len)
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--prev-source", help="an earlier csrc/gru.cu to time against")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device; this script runs only on a GPU\n")
         return 2
@@ -271,8 +345,10 @@ def main():
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
+    prev_build = start_prev_build(args.prev_source) if args.prev_source else None
     phase_build(gru)
-    max_err, timings = phase_kernel(gru, dev)
+    prev = load_prev(prev_build) if prev_build else None
+    max_err, timings = phase_kernel(gru, dev, prev)
     engine = phase_engine(dev)
     e2e = phase_end_to_end(card, GENOME_LEN)
     log(f"[done] {time.time() - t_start:.1f} s; " + json.dumps(dict(engine=engine, e2e=e2e)))
@@ -283,8 +359,11 @@ def main():
         replaces="clairs_to_tpu/ops/gru_pallas.py:61", launches=e2e["launches"],
         max_abs_err=max_err, ms=t["kernel_ms"], plain_ms=t["plain_ms"],
         bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],
-        shape=f"T={T} B=8192 H=192", h128=timings[128],
+        bound_fp32_ms=t["bound_fp32_ms"], shape=f"T={T} B=8192 H=192",
+        h128=timings[128],
     )]
+    if "prev_ms" in t:
+        kernels[0]["prev_ms"] = t["prev_ms"]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

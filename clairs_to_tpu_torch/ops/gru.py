@@ -7,7 +7,8 @@ of clairs_to_tpu/models/bigru.py::_gru_direction) for CPU tensors.  On a
 CUDA tensor it launches the kernel or raises; it never falls back.
 
 The kernel is compiled by ``nvcc`` for sm_90a into ``build/kernels/`` at the
-repository root on first use and loaded with ctypes.
+repository root on first use and loaded with ctypes.  It reads W_hh^T in the
+chunked layout of ``pack_w_hh``, which the wrapper builds for each launch.
 """
 
 import ctypes
@@ -22,7 +23,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "gru.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 _SO = os.path.join(BUILD_DIR, "libgru.so")
-MAX_HIDDEN = 256   # csrc/gru.cu: one thread per hidden column
+MAX_HIDDEN = 256   # csrc/gru.cu: the largest H its shared memory holds
+KC, GROUP = 16, 64  # csrc/gru.cu: W rows per chunk, hidden units per column group
 
 _lib = None
 _lock = threading.Lock()
@@ -88,6 +90,40 @@ def gru_direction_plain(x_gates, w_hh_t, b_hh, reverse=False):
     return out
 
 
+def split_tf32(x):
+    """x = hi + lo to within 2**-22 of x: hi is x rounded to TF32 (10 mantissa
+    bits, ties away from zero, as csrc/gru.cu rounds h), lo the rest rounded
+    to TF32.  float32 in, two float32 tensors out."""
+    def tf32(v):
+        return ((v.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def pack_w_hh(w_hh_t):
+    """W_hh^T (H, 3H) split into TF32 hi and lo, in csrc/gru.cu's layout.
+
+    Rows are padded with zeros to HK = round_up(H, 32) and each gate's
+    columns to whole groups of GROUP units.  The result is a sequence of
+    chunks (group g, rows c*KC .. c*KC+KC-1), so one bulk copy fills a stage
+    of the kernel's ring.  In a chunk, for hi and lo, for each warpgroup's 32
+    columns of the group (r, z and n: wgmma's N of 96) and each k-step of 8
+    rows, the 96 x 8 block is stored as wgmma's K-major core matrices of 8
+    columns x 4 rows: shape (groups, HK/KC, 2, 2, KC/8, 3, 4, 2, 8, 4).  A
+    gate's 32 columns are ordered so that wgmma column 8 jb + 2 t + e, which
+    lands in thread t of a row, is hidden unit 8 t + 2 jb + e: each thread
+    then holds 8 consecutive units and reads and writes them 16 bytes at a time.
+    """
+    H = w_hh_t.shape[0]
+    n_groups, hk = -(-H // GROUP), -(-H // 32) * 32
+    w = w_hh_t.new_zeros((hk, 3, n_groups * GROUP))
+    w[:H, :, :H] = w_hh_t.view(H, 3, H)
+    # row k = (c, kb, kh, k4); unit = (group, warpgroup, t, jb, e)
+    parts = torch.stack(split_tf32(w)).view(2, hk // KC, KC // 8, 2, 4, 3, n_groups, 2, 4, 4, 2)
+    parts = parts.permute(6, 1, 0, 7, 2, 5, 9, 3, 8, 10, 4)
+    return parts.reshape(n_groups, hk // KC, 2, 2, KC // 8, 3, 4, 2, 8, 4)
+
+
 def gru_direction(x_gates, w_hh_t, b_hh, reverse=False):
     """One GRU direction: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.  Same arguments as ``gru_direction_plain``."""
@@ -113,7 +149,8 @@ def gru_direction(x_gates, w_hh_t, b_hh, reverse=False):
         build()
     out = torch.empty((T, B, H), dtype=torch.float32, device=x_gates.device)
     stream = torch.cuda.current_stream(x_gates.device).cuda_stream
-    err = _lib.gru_direction_f32(x_gates.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(),
+    w_packed = pack_w_hh(w_hh_t)
+    err = _lib.gru_direction_f32(x_gates.data_ptr(), w_packed.data_ptr(), b_hh.data_ptr(),
                                  out.data_ptr(), T, B, H, int(reverse), stream)
     if err != 0:
         raise RuntimeError(f"gru_direction kernel launch failed: cudaError {err}")

@@ -2,7 +2,9 @@
 version, and the engine with the kernel against the engine without it.
 
 Marked ``cuda``; each test skips where there is no GPU.  Run them on a
-machine with an H100 with ``python -m pytest tests/test_torch_cuda.py``.
+machine with an H100 with
+``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
+(``--noconftest``: tests/conftest.py imports jax, which that machine lacks).
 """
 
 import numpy as np
@@ -23,7 +25,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(B, H, seed, device):
+def _inputs(B, H, seed, device, T=T):
     rng = np.random.default_rng(seed)
     xg = torch.from_numpy(rng.normal(size=(T, B, 3 * H)).astype(np.float32)).to(device)
     bound = H ** -0.5
@@ -32,17 +34,28 @@ def _inputs(B, H, seed, device):
     return xg, w.to(device), b.to(device)
 
 
-@pytest.mark.parametrize("H", [16, 128, 192])
-@pytest.mark.parametrize("B", [1000, 8192])
+@pytest.mark.parametrize("H", [1, 16, 24, 40, 128, 192, 200, 256])
+@pytest.mark.parametrize("B", [1, 63, 65, 1000, 8191, 8192])
+@pytest.mark.parametrize("steps", [1, T])
 @pytest.mark.parametrize("reverse", [False, True])
-def test_kernel_matches_plain(cuda, H, B, reverse):
-    xg, w, b = _inputs(B, H, seed=H + B, device=cuda)
+def test_kernel_matches_plain(cuda, H, B, steps, reverse):
+    """Ragged last tiles (B not a multiple of 64); H not a multiple of 4
+    (no 16-byte path), of 32 (the K padding) or of a 64-unit group; one
+    step and the engine's 33."""
+    xg, w, b = _inputs(B, H, seed=H + B, device=cuda, T=steps)
     before = tgru.gru_direction.launches
     got = tgru.gru_direction(xg, w, b, reverse=reverse)
     torch.cuda.synchronize()
     assert tgru.gru_direction.launches == before + 1
     want = tgru.gru_direction_plain(xg, w, b, reverse=reverse)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_kernel_is_deterministic(cuda):
+    xg, w, b = _inputs(8191, 192, seed=3, device=cuda)
+    first = tgru.gru_direction(xg, w, b)
+    second = tgru.gru_direction(xg, w, b)
+    assert torch.equal(first, second)
 
 
 def test_kernel_rejects_bad_inputs(cuda):
@@ -53,3 +66,6 @@ def test_kernel_rejects_bad_inputs(cuda):
         tgru.gru_direction(xg[:, :, :47], w, b)
     with pytest.raises(ValueError):
         tgru.gru_direction(xg.transpose(0, 1), w, b)
+    xg, w, b = _inputs(2, 257, seed=0, device=cuda)
+    with pytest.raises(ValueError):
+        tgru.gru_direction(xg, w, b)

@@ -123,3 +123,68 @@ def test_gru_direction_rejects_mixed_devices():
     xg = torch.zeros(T, 2, 48)
     with pytest.raises(ValueError):
         tgru.gru_direction(xg, torch.zeros(16, 48, device="meta"), torch.zeros(48))
+
+
+
+def _unpack_w_hh(packed):
+    """Inverse of ``pack_w_hh``: the padded hi and lo, each (HK, 3, groups*GROUP)."""
+    n_groups, n_kc = packed.shape[:2]
+    hk = n_kc * tgru.KC
+    w = packed.reshape(*packed.shape[:8], 4, 2, 4)  # wgmma column r = (t, e)
+    w = w.permute(2, 1, 4, 7, 10, 5, 0, 3, 8, 6, 9)  # tile, c, kb, kh, k4, gate, g, wg, t, jb, e
+    return w.reshape(2, hk, 3, n_groups * tgru.GROUP)
+
+
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 300.0])
+def test_split_tf32(scale):
+    """hi keeps TF32's 10 mantissa bits; hi + lo is x to within 2**-22."""
+    x = torch.from_numpy((np.random.default_rng(0).normal(size=4096) * scale).astype(np.float32))
+    hi, lo = tgru.split_tf32(x)
+    assert torch.count_nonzero(hi.view(torch.int32) & 0x1FFF) == 0
+    assert torch.count_nonzero(lo.view(torch.int32) & 0x1FFF) == 0
+    assert torch.all((hi - x).abs() <= 2.0 ** -11 * x.abs())
+    err = ((hi.double() + lo.double()) - x.double()).abs()
+    assert torch.all(err <= 2.0 ** -22 * x.abs().double())
+
+
+@pytest.mark.parametrize("hidden", [1, 16, 24, 70, 192, 256])
+def test_pack_w_hh_layout(hidden):
+    """The kernel's chunked W_hh^T holds hi and lo of W where they belong and
+    zeros in the padding."""
+    w = torch.from_numpy(np.random.default_rng(hidden).normal(
+        size=(hidden, 3 * hidden)).astype(np.float32))
+    packed = tgru.pack_w_hh(w)
+    n_groups, hk = -(-hidden // tgru.GROUP), -(-hidden // 32) * 32
+    assert packed.shape == (n_groups, hk // tgru.KC, 2, 2, tgru.KC // 8, 3, 4, 2, 8, 4)
+    assert packed.is_contiguous()
+    hi, lo = _unpack_w_hh(packed)
+    want_hi, want_lo = tgru.split_tf32(w)
+    assert torch.equal(hi[:hidden, :, :hidden], want_hi.view(hidden, 3, hidden))
+    assert torch.equal(lo[:hidden, :, :hidden], want_lo.view(hidden, 3, hidden))
+    assert torch.count_nonzero(hi) == torch.count_nonzero(want_hi)
+    assert torch.count_nonzero(lo) == torch.count_nonzero(want_lo)
+
+
+@pytest.mark.parametrize("hidden", [16, 24, 40])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_padded_layout_matches_unpadded(hidden, reverse):
+    """Zero W columns, zero bias and zero x_gates keep a padded unit at h = 0,
+    so the kernel's padding of H changes no output, and W's hi + lo is W."""
+    rng = np.random.default_rng(9)
+    B, bound = 5, hidden ** -0.5
+    w = torch.from_numpy(rng.uniform(-bound, bound, (hidden, 3 * hidden)).astype(np.float32))
+    b = torch.from_numpy(rng.uniform(-bound, bound, 3 * hidden).astype(np.float32))
+    xg = torch.from_numpy(rng.normal(size=(T, B, 3 * hidden)).astype(np.float32))
+    hi, lo = _unpack_w_hh(tgru.pack_w_hh(w))
+    hp = hi.shape[2]
+    w_pad = torch.zeros(hp, 3, hp)
+    w_pad[:hi.shape[0]] = hi + lo
+    b_pad = torch.zeros(3, hp)
+    b_pad[:, :hidden] = b.view(3, hidden)
+    x_pad = torch.zeros(T, B, 3, hp)
+    x_pad[..., :hidden] = xg.view(T, B, 3, hidden)
+    got = tgru.gru_direction_plain(x_pad.view(T, B, 3 * hp), w_pad.view(hp, 3 * hp),
+                                   b_pad.view(3 * hp), reverse=reverse)
+    want = tgru.gru_direction_plain(xg, w, b, reverse=reverse)
+    assert torch.count_nonzero(got[..., hidden:]) == 0
+    np.testing.assert_allclose(got[..., :hidden].numpy(), want.numpy(), rtol=0, atol=1e-6)
