@@ -13,10 +13,19 @@ Phases, each fatal on failure:
      old, new, new, old;
   3. the engine's forward on the flagship ONT SNV and indel weights at
      device_batch 8192, with the kernel against the plain GRU;
-  4. ``clairs_to_tpu_torch run -p ont`` end to end on a simulated 2 Mb ONT
-     BAM at 60x with SNVs and indels, then the same region run on the CPU
-     as the reference for the calls.
-Prints the card's name and power limit, a ``kernels`` JSON line, and as
+  4. ``clairs_to_tpu_torch run -p ont`` with every post-calling stage opted
+     out (the first slice's path) on a simulated 2 Mb ONT BAM at 60x, then on
+     a 200 kb region of it on the card and on the CPU, the CPU's calls being
+     the reference;
+  5. ``run -p ont`` with its default flags on the whole 2 Mb: phasing and
+     the haplotype filter, PoN tagging against a bgzipped, indexed panel
+     written here, Verdict, bgzip + tabix output.  The three C++ libraries
+     must have loaded, reads must get haplotags, the haplotype filter and
+     the PoN must each mark a row, and TabixReader must read the outputs
+     back.  Then the same flags on the 200 kb region, card against CPU;
+  6. ``run -p ilmn`` with its default flags (realignment, the postfilter) on
+     a simulated 300 kb Illumina BAM at 50x, card against CPU.
+Each run's GRU launches are counted from 0.  Prints the card's name and power limit, a ``kernels`` JSON line, and as
 the last line ``{"ok": true, "device": {...}}``.  Exits non-zero without a
 GPU.  Working files go under build/chip_smoke/ in the checkout.
 """
@@ -51,7 +60,12 @@ ONT_PROFILE = dict(read_length=500, error_rate=0.002,
                    eval_profile=dict(hp_error_mult=4.0, strand_err_mult=1.6,
                                      qual_decay=6.0, burst_rate=0.08,
                                      burst_len=40, burst_qual=8))
+ILMN_PROFILE = dict(read_length=150, error_rate=0.001,
+                    eval_profile=dict(hp_error_mult=1.5, strand_err_mult=2.0,
+                                      qual_decay=10.0, burst_rate=0.02,
+                                      burst_len=20, burst_qual=6))
 GENOME_LEN = 2_000_000
+ILMN_GENOME_LEN = 300_000
 COVERAGE = 60
 
 
@@ -248,22 +262,30 @@ def _wall(fn, iters):
 
 
 def _calls(path, filt="PASS"):
+    """Rows as (what cuda and cpu must agree on ..., QUAL)."""
     rows = []
     for line in open(path):
         if line.startswith("#"):
             continue
-        c = line.split("\t")
+        c = line.rstrip("\n").split("\t")
         if filt is None or c[6] == filt:
-            rows.append((c[0], int(c[1]), c[3], c[4], c[6], float(c[5])))
+            rows.append((c[0], int(c[1]), c[3], c[4], c[6], c[7], c[9].split(":")[0],
+                         float(c[5])))
     return rows
 
 
-def _run_cli(ds, out_dir, device, extra=()):
+OPT_OUT = ("--disable_intermediate_phasing", "--disable_verdict", "--panel_of_normals", "None")
+
+
+def _run_cli(ds, out_dir, device, platform="ont", extra=()):
+    """One ``run`` through the CLI's entry point; returns (wall seconds,
+    candidates, the run's stage seconds and counters)."""
     from clairs_to_tpu_torch.cli.run import main
 
-    args = ["-T", ds["bam"], "-R", ds["fasta"], "-o", out_dir, "-t", "8", "-p", "ont",
-            "--model_dir", ASSETS, "--disable_intermediate_phasing", "--disable_verdict",
-            "--panel_of_normals", "None", "--device", device, *extra]
+    args = ["-T", ds["bam"], "-R", ds["fasta"], "-o", out_dir, "-t", "8", "-p", platform,
+            "--device", device, *extra]
+    if device == "cpu":
+        args += ["--device_batch", "1024"]
     t0 = time.time()
     rc = main(args)
     wall = time.time() - t0
@@ -271,57 +293,224 @@ def _run_cli(ds, out_dir, device, extra=()):
         raise AssertionError(f"run exited {rc}")
     text = open(os.path.join(out_dir, "run_clairs_to_tpu_torch.log")).read()
     n_cand = int(re.findall(r"\[INFO\] (\d+) candidates, total time", text)[-1])
-    summary = re.findall(r"RunMetricsSummary: (\{.*\})", text)[-1]
+    summary = json.loads(re.findall(r"RunMetricsSummary: (\{.*\})", text)[-1])
     return wall, n_cand, summary
 
 
-def phase_end_to_end(card, genome_len):
-    from clairs_to_tpu_torch.bamio.simulate import make_dataset
+def _counted_run(tag, card, ds, out_dir, platform="ont", extra=()):
+    """A run on the card with the kernel's launches counted from 0."""
     from clairs_to_tpu_torch.ops import gru
 
-    data_dir = os.path.join(WORK, "data")
-    t0 = time.time()
-    ds = make_dataset(data_dir, seed=7, genome_len=genome_len, coverage=COVERAGE,
-                      n_snv=max(20, genome_len // 20_000), n_indel=max(10, genome_len // 40_000),
-                      n_germline=max(10, genome_len // 20_000), **ONT_PROFILE)
-    log(f"[e2e] simulated {genome_len} bp ONT at {COVERAGE}x in {time.time() - t0:.1f} s")
-
     gru.gru_direction.launches = 0
-    out_dir = os.path.join(WORK, "out_cuda")
-    wall, n_cand, summary = _run_cli(ds, out_dir, "cuda")
+    wall, n_cand, summary = _run_cli(ds, out_dir, "cuda", platform, extra)
     launches = gru.gru_direction.launches
-    snv, indel = (os.path.join(out_dir, f) for f in ("snv.vcf", "indel.vcf"))
-    n_snv, n_indel = len(_calls(snv, None)), len(_calls(indel, None))
-    log(f"[e2e] {card}: {n_cand} candidates in {wall:.2f} s wall = {n_cand / wall:.1f} cand/s; "
-        f"{n_snv} SNV rows, {n_indel} indel rows; GRU launches {launches}")
-    log(f"[e2e] stages {summary}")
-    if not (n_snv and n_indel and launches > 0):
-        raise AssertionError("end-to-end run produced no rows or never launched the kernel")
+    log(f"[{tag}] {card}: {n_cand} candidates in {wall:.2f} s wall = {n_cand / wall:.1f} "
+        f"cand/s; GRU launches {launches}")
+    log(f"[{tag}] stages {json.dumps(summary['stages'])}")
+    log(f"[{tag}] counters {json.dumps(summary['counters'])}")
+    if launches <= 0:
+        raise AssertionError(f"{tag}: the run never launched the GRU kernel")
+    return dict(candidates=n_cand, wall_s=wall, cand_per_s=n_cand / wall, launches=launches,
+                stages=summary["stages"], counters=summary["counters"])
 
-    truth = {(r[1], r[2], r[3]) for r in _calls(ds["truth"], None)}
-    called = {(r[1], r[2], r[3]) for r in _calls(snv) + _calls(indel)}
-    tp = len(truth & called)
-    recall, precision = tp / max(len(truth), 1), tp / max(len(called), 1)
-    log(f"[e2e] PASS calls vs truth: recall {recall:.4f} precision {precision:.4f}")
-    if recall < 0.5 or precision < 0.5:
-        raise AssertionError("calls do not recover the simulated variants")
 
-    # reference on a small input: the same region through the plain CPU path
-    region = f"chrS:1-{min(genome_len, 200_000)}"
-    cpu_dir = os.path.join(WORK, "out_cpu")
-    gpu_dir = os.path.join(WORK, "out_cuda_region")
-    _run_cli(ds, cpu_dir, "cpu", ("-r", region, "--device_batch", "1024"))
-    _run_cli(ds, gpu_dir, "cuda", ("-r", region))
-    for name in ("snv.vcf", "indel.vcf"):
+def _same_calls(tag, gpu_dir, cpu_dir, names=("snv.vcf", "indel.vcf")):
+    """The card's rows against the CPU path's: same sites, alleles, FILTER,
+    INFO and GT, QUAL within 0.01."""
+    total = 0
+    for name in names:
         want = _calls(os.path.join(cpu_dir, name), None)
         got = _calls(os.path.join(gpu_dir, name), None)
-        gap = max((abs(a[5] - b[5]) for a, b in zip(want, got)), default=0.0)
-        log(f"[e2e] {region} {name}: {len(got)} rows on cuda, {len(want)} on cpu, "
+        gap = max((abs(a[-1] - b[-1]) for a, b in zip(want, got)), default=0.0)
+        log(f"[{tag}] {name}: {len(got)} rows on cuda, {len(want)} on cpu, "
             f"largest QUAL gap {gap:.4f}")
-        if [r[:5] for r in got] != [r[:5] for r in want] or gap > 0.01:
-            raise AssertionError(f"{name}: cuda and cpu calls differ in {region}")
-    return dict(candidates=n_cand, wall_s=wall, cand_per_s=n_cand / wall,
-                launches=launches, genome_len=genome_len)
+        if [r[:-1] for r in got] != [r[:-1] for r in want] or gap > 0.01:
+            differ = [(a, b) for a, b in zip(want, got) if a[:-1] != b[:-1]][:3]
+            raise AssertionError(f"{tag} {name}: cuda and cpu calls differ: {differ}")
+        total += len(got)
+    if not total:
+        raise AssertionError(f"{tag}: no rows to compare")
+
+
+def _score(tag, ds, out_dir, names):
+    """PASS calls against the simulated somatic truth.  A tumor-only caller
+    cannot tell a germline het site from a somatic one by its reads, so PASS
+    calls at simulated germline sites are counted apart."""
+    truth = {(r[1], r[2], r[3]) for r in _calls(ds["truth"], None)}
+    germline = {v.pos + 1 for v in ds["variants"] if v.germline}
+    called = {(r[1], r[2], r[3]) for n in names for r in _calls(os.path.join(out_dir, n))}
+    leaked = {c for c in called if c[0] in germline}
+    called -= leaked
+    tp = len(truth & called)
+    recall, precision = tp / max(len(truth), 1), tp / max(len(called), 1)
+    log(f"[{tag}] PASS calls vs truth: recall {recall:.4f} precision {precision:.4f} "
+        f"({len(truth)} true, {len(called)} called, {len(leaked)} more at germline sites)")
+    if recall < 0.5 or precision < 0.5:
+        raise AssertionError(f"{tag}: calls do not recover the simulated variants")
+    return dict(recall=recall, precision=precision, germline_pass=len(leaked))
+
+
+def _check_tabix(tag, out_dir, name, ctg, lo, hi):
+    from clairs_to_tpu_torch.vcf.tabix import TabixReader
+
+    gz = os.path.join(out_dir, name + ".gz")
+    if not (os.path.exists(gz) and os.path.exists(gz + ".tbi")):
+        raise AssertionError(f"{tag}: {name}.gz or its .tbi is missing")
+    got = [l.split("\t")[:2] for l in TabixReader(gz).fetch(ctg, lo, hi)]
+    want = [[r[0], str(r[1])] for r in _calls(os.path.join(out_dir, name), None)
+            if r[0] == ctg and lo < r[1] <= hi]
+    log(f"[{tag}] {name}.gz: TabixReader.fetch({ctg}:{lo}-{hi}) gave {len(got)} rows")
+    if got != want:
+        raise AssertionError(f"{tag}: tabix fetch of {name}.gz disagrees with the plain VCF")
+    return len(got)
+
+
+def phase_opt_out(card, ds, region):
+    """Phase 4, the earlier slice's path: every post-calling stage opted out.
+    The whole genome on the card (the wall that phase 5's is held against),
+    then a region, the card against the CPU path."""
+    extra = ("--model_dir", ASSETS, *OPT_OUT)
+    out_dir = os.path.join(WORK, "optout_cuda")
+    res = _counted_run("opt-out", card, ds, out_dir, extra=extra)
+    res.update(_score("opt-out", ds, out_dir, ("snv.vcf", "indel.vcf")))
+    gpu_dir, cpu_dir = os.path.join(WORK, "optout_cuda_region"), os.path.join(WORK, "optout_cpu")
+    _run_cli(ds, gpu_dir, "cuda", extra=extra + ("-r", region))
+    _run_cli(ds, cpu_dir, "cpu", extra=extra + ("-r", region))
+    _same_calls(f"opt-out {region}", gpu_dir, cpu_dir)
+    return res
+
+
+def write_pon(ds, path, keep=0.75):
+    """A panel of normals of most simulated germline sites, bgzipped and
+    indexed with the port's own writer."""
+    from clairs_to_tpu_torch.vcf.tabix import write_tabix_vcf
+
+    rng = np.random.default_rng(11)
+    germ = sorted((v.pos, v.ref, v.alt) for v in ds["variants"] if v.germline)
+    with open(path, "w") as f:
+        f.write("##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
+        for pos, ref, alt in germ:
+            if rng.random() < keep:
+                f.write(f"{ds['ctg']}\t{pos + 1}\t.\t{ref}\t{alt}\t.\t.\t.\n")
+    write_tabix_vcf(path)
+    return path + ".gz"
+
+
+HAPLOTYPE_TAGS = ("LowAltBQ", "LowAltMQ", "ReadStartEnd", "VariantCluster", "NoAncestry",
+                  "MultiHap", "StrandBias", "LowSeqEntropy")
+
+
+def phase_default_ont(card, ds, genome_len, region):
+    """Phase 5, this slice's path: ``run -p ont`` with no opt-out flag and a
+    panel of normals, on the whole genome; then on a region, the card
+    against the CPU path."""
+    pon = write_pon(ds, os.path.join(WORK, "pon.vcf"))
+    extra = ("--panel_of_normals", pon)
+    out_dir = os.path.join(WORK, "default_cuda")
+    res = _counted_run("default", card, ds, out_dir, extra=extra)
+    stages, counters = res["stages"], res["counters"]
+    for stage in ("hard_filters", "pon_tagging", "verdict", "tabix"):
+        if stage not in stages:
+            raise AssertionError(f"default: stage {stage} did not run")
+    tagged, reads = counters.get("reads_haplotagged", 0), counters.get("reads_phasing_input", 0)
+    log(f"[default] phasing: {counters.get('phasing_anchors', 0)} anchor sites, "
+        f"{tagged} of {reads} reads haplotagged")
+    if tagged <= 0:
+        raise AssertionError("default: no read was haplotagged")
+    rows = _calls(os.path.join(out_dir, "snv.vcf"), None)
+    n_hap = sum(any(t in r[4].split(";") for t in HAPLOTYPE_TAGS) for r in rows)
+    n_phaseable = sum(r[5].startswith("H;") or r[5] == "H" for r in rows)
+    n_pon = sum("NonSomatic" in r[4] for r in rows)
+    n_verdict = sum("Verdict_" in r[5] for r in rows)
+    n_indel = len(_calls(os.path.join(out_dir, "indel.vcf"), None))
+    log(f"[default] {len(rows)} SNV rows, {n_indel} indel rows: {n_hap} failed by the "
+        f"haplotype filter, {n_phaseable} phaseable, {n_pon} tagged NonSomatic, "
+        f"{n_verdict} tagged by Verdict")
+    text = open(os.path.join(out_dir, "run_clairs_to_tpu_torch.log")).read()
+    log("[default] " + re.findall(r"\[INFO\] (Verdict.*)", text)[-1])
+    if not (rows and n_indel and n_hap and n_pon):
+        raise AssertionError("default: rows, haplotype-filter tags or PoN tags are missing")
+    res["tabix_rows"] = [_check_tabix("default", out_dir, name, ds["ctg"], genome_len // 4,
+                                      genome_len // 2) for name in ("snv.vcf", "indel.vcf")]
+    res.update(_score("default", ds, out_dir, ("snv.vcf", "indel.vcf")))
+    res.update(rows_snv=len(rows), rows_indel=n_indel, haplotype_failed=n_hap,
+               pon_tagged=n_pon, verdict_tagged=n_verdict)
+
+    gpu_dir, cpu_dir = os.path.join(WORK, "default_cuda_region"), os.path.join(WORK, "default_cpu")
+    _run_cli(ds, gpu_dir, "cuda", extra=extra + ("-r", region))
+    _run_cli(ds, cpu_dir, "cpu", extra=extra + ("-r", region))
+    _same_calls(f"default {region}", gpu_dir, cpu_dir)
+    return res
+
+
+def phase_ilmn(card, genome_len):
+    """Phase 6: ``run -p ilmn`` with its default flags (realignment, then the
+    postfilter) on 150-base reads, the card against the CPU path."""
+    from clairs_to_tpu_torch.bamio.simulate import make_dataset
+    from clairs_to_tpu_torch.postcall import realignment
+
+    t0 = time.time()
+    ds = make_dataset(os.path.join(WORK, "data_ilmn"), seed=9, genome_len=genome_len,
+                      coverage=50, n_snv=max(20, genome_len // 10_000), n_indel=0,
+                      n_germline=max(10, genome_len // 10_000), **ILMN_PROFILE)
+    log(f"[ilmn] simulated {genome_len} bp Illumina at 50x in {time.time() - t0:.1f} s")
+    calls = []
+    real = realignment.realign_filter
+
+    def counting(*a, **kw):
+        calls.append(kw.get("window") is not None)
+        return real(*a, **kw)
+
+    realignment.realign_filter = counting
+    try:
+        gpu_dir, cpu_dir = os.path.join(WORK, "ilmn_cuda"), os.path.join(WORK, "ilmn_cpu")
+        res = _counted_run("ilmn", card, ds, gpu_dir, platform="ilmn")
+        _run_cli(ds, cpu_dir, "cpu", platform="ilmn")
+    finally:
+        realignment.realign_filter = real
+    rows = _calls(os.path.join(gpu_dir, "snv.vcf"), None)
+    n_sb = sum(";SB=" in r[5] for r in rows)
+    n_re = sum("Realignment" in r[4] for r in rows)
+    log(f"[ilmn] realign_filter called {len(calls)} times (with the window's reads: "
+        f"{sum(calls)}); {len(rows)} SNV rows, {n_sb} through the postfilter, "
+        f"{n_re} failed by realignment")
+    if not (calls and all(calls) and rows and n_sb and "hard_filters" in res["stages"]):
+        raise AssertionError("ilmn: realignment or the postfilter did not run")
+    _same_calls("ilmn", gpu_dir, cpu_dir)
+    _check_tabix("ilmn", gpu_dir, "snv.vcf", ds["ctg"], 0, genome_len)
+    res.update(_score("ilmn", ds, gpu_dir, ("snv.vcf",)))
+    res.update(rows_snv=len(rows), realign_failed=n_re)
+    return res
+
+
+def phase_end_to_end(card, genome_len, ilmn_len):
+    """Phases 4 to 6 on one simulated ONT genome and one Illumina genome."""
+    from clairs_to_tpu_torch import realign
+    from clairs_to_tpu_torch.bamio import native
+    from clairs_to_tpu_torch.bamio.simulate import make_dataset
+    from clairs_to_tpu_torch.postcall import verdict_native
+
+    # the three C++ libraries build here with g++; none may fall back to numpy
+    t0 = time.time()
+    libs = dict(pileup_native=native.available(), verdict_native=verdict_native.available(),
+                realign_native=realign.available())
+    log(f"[libs] built and loaded in {time.time() - t0:.1f} s: {json.dumps(libs)}")
+    if not all(libs.values()):
+        raise AssertionError(f"a C++ library is not available: {libs}")
+
+    # germline sites every 300 bases under 500-base reads: reads link them,
+    # so the phaser has real work
+    t0 = time.time()
+    ds = make_dataset(os.path.join(WORK, "data"), seed=7, genome_len=genome_len,
+                      coverage=COVERAGE, n_snv=max(20, genome_len // 20_000),
+                      n_indel=max(10, genome_len // 40_000), n_germline=genome_len // 300,
+                      somatic_hap_aware=True, **ONT_PROFILE)
+    log(f"[e2e] simulated {genome_len} bp ONT at {COVERAGE}x in {time.time() - t0:.1f} s")
+    region = f"{ds['ctg']}:1-{min(genome_len, 200_000)}"
+    return dict(genome_len=genome_len,
+                opt_out=phase_opt_out(card, ds, region),
+                default_ont=phase_default_ont(card, ds, genome_len, region),
+                ilmn=phase_ilmn(card, ilmn_len))
 
 
 def main(argv=None):
@@ -350,13 +539,15 @@ def main(argv=None):
     prev = load_prev(prev_build) if prev_build else None
     max_err, timings = phase_kernel(gru, dev, prev)
     engine = phase_engine(dev)
-    e2e = phase_end_to_end(card, GENOME_LEN)
+    e2e = phase_end_to_end(card, GENOME_LEN, ILMN_GENOME_LEN)
     log(f"[done] {time.time() - t_start:.1f} s; " + json.dumps(dict(engine=engine, e2e=e2e)))
 
     t = timings[192]
     kernels = [dict(
         name="gru_direction", route="cuda", source="clairs_to_tpu_torch/csrc/gru.cu",
-        replaces="clairs_to_tpu/ops/gru_pallas.py:61", launches=e2e["launches"],
+        replaces="clairs_to_tpu/ops/gru_pallas.py:61",
+        launches=e2e["default_ont"]["launches"],
+        launches_by_path={k: e2e[k]["launches"] for k in ("opt_out", "default_ont", "ilmn")},
         max_abs_err=max_err, ms=t["kernel_ms"], plain_ms=t["plain_ms"],
         bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],
         bound_fp32_ms=t["bound_fp32_ms"], shape=f"T={T} B=8192 H=192",

@@ -1,7 +1,8 @@
 """Submodule dispatcher: ``python -m clairs_to_tpu_torch <submodule> [options]``.
 
-Counterpart of clairs_to_tpu/__main__.py.  The port has one submodule so
-far, ``run``; the others (serve, train, compare_vcf, ...) are still to port.
+Counterpart of clairs_to_tpu/__main__.py.  The port has one submodule,
+``run``, which does on one GPU everything the original ``run`` does on one
+device; serve, train, compare_vcf and the rest are still to port.
 """
 
 import sys

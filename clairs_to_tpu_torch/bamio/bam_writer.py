@@ -42,35 +42,6 @@ def bgzf_compress(data: bytes, block_size: int = 60000) -> bytes:
     return b"".join(out)
 
 
-class BgzfWriter:
-    """BGZF writer exposing the virtual offset of the next byte
-    (copied from clairs_to_tpu/vcf/tabix.py, which this slice leaves out)."""
-
-    def __init__(self, fileobj, block_size=0xF000):
-        self._fp = fileobj
-        self._buf = bytearray()
-        self._coffset = 0
-        self._block_size = block_size
-
-    @property
-    def tell_virtual(self):
-        return (self._coffset << 16) | len(self._buf)
-
-    def write(self, data: bytes):
-        self._buf += data
-        while len(self._buf) >= self._block_size:
-            block = _bgzf_block(bytes(self._buf[: self._block_size]))
-            self._fp.write(block)
-            self._coffset += len(block)
-            self._buf = self._buf[self._block_size :]
-
-    def close(self):
-        if self._buf:
-            self._fp.write(_bgzf_block(bytes(self._buf)))
-            self._buf = bytearray()
-        self._fp.write(_BGZF_EOF)
-
-
 def encode_record(
     name: str,
     flag: int,
@@ -151,6 +122,8 @@ def write_bam(path, references, lengths, records, header_text=None,
     records: iterable of encoded record bytes (see encode_record) — must be
     coordinate-sorted by the caller for region access to work.
     """
+    from clairs_to_tpu_torch.vcf.tabix import BgzfWriter
+
     if header_text is None:
         header_text = "@HD\tVN:1.6\tSO:coordinate\n" + "".join(
             f"@SQ\tSN:{r}\tLN:{l}\n" for r, l in zip(references, lengths)
@@ -195,6 +168,8 @@ def write_bam(path, references, lengths, records, header_text=None,
 def write_bai(bai_path, n_ref, entries):
     """Write a BAI index from (ref_id, beg0, end0, voff_beg, voff_end) rows."""
     from collections import defaultdict
+
+    from clairs_to_tpu_torch.vcf.tabix import _reg2bin
 
     bins = defaultdict(lambda: defaultdict(list))
     linear = defaultdict(dict)

@@ -19,10 +19,6 @@ _SRC = os.path.join(_DIR, "pileup_native.cpp")
 _lib = None
 _load_error = None
 
-# read-start/end filter ratio, copied from clairs_to_tpu/postcall/hardfilter.py
-# (the port leaves the hard filters out of this slice)
-EPS_RSE = 0.2
-
 # extended span margin for the filter-view dense stats: verdict windows
 # reach at most FLANKING (100) bp past the chunk region edge
 FILT_MARGIN = 128
@@ -809,6 +805,8 @@ class NativeWindow:
         # native int32 dtypes — the verdict kernels only index/compare with
         # them, and the round-4 .astype(int64) copies of the 4M-column
         # dense arrays cost ~1s/chunk on the decode worker for nothing.
+        from clairs_to_tpu_torch.postcall.hardfilter import EPS_RSE
+
         st_rel, st_read, en_rel, en_read = self.startend_data()
         depth = self.filt_depth
         nonref = self.filt_nonref

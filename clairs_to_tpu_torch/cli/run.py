@@ -1,13 +1,14 @@
 """run_clairs_to-compatible driver for the PyTorch/CUDA port.
 
 Counterpart of clairs_to_tpu/cli/run.py with the same parser plus
-``--device``.  This slice of the port runs the calling stage (decode ->
-dual-network forward on the device -> host posterior -> VCF rows), the
-merge and the QUAL postprocess for SNV and indel.  A run that needs a
-stage outside it — intermediate phasing or the haplotype filter, the
-Illumina postfilter, PoN tagging, Verdict, genotyping/hybrid add-back, BAQ,
-several GPUs or hosts — exits with an error instead of skipping the stage.
-Outputs are plain VCFs: the bgzip + tabix copies are not written yet.
+``--device``.  One run does everything the original does on one device: the
+calling stage (decode -> dual-network forward on the device -> host
+posterior -> VCF rows), the per-chunk filters (phasing and the haplotype
+filter for long reads, realignment and the postfilter for Illumina), the
+merge, PoN tagging, the QUAL postprocess, genotyping/hybrid add-back,
+Verdict, and the bgzip + tabix copies of both outputs.  The stages after the
+forward are numpy and C++ on the host, as in the original.  A run that asks
+for several GPUs or several hosts exits with an error: those are not ported.
 """
 
 import argparse
@@ -123,13 +124,17 @@ def build_parser():
                      help="Device of the dual-network forward (default: cuda; "
                           "the run fails when no GPU is present).")
     adv.add_argument("--device_count", type=int, default=None,
-                     help="Number of GPUs (not yet ported: only 1).")
+                     help="Number of GPUs. Only 1 is supported: a larger "
+                          "value exits with an error.")
     adv.add_argument("--coordinator_address", default=None,
-                     help="Multi-host runs (not yet ported).")
+                     help="Multi-host runs (not supported: the run exits with "
+                          "an error).")
     adv.add_argument("--num_processes", type=int, default=None,
-                     help="Multi-host runs (not yet ported).")
+                     help="Multi-host runs (not supported: the run exits with "
+                          "an error).")
     adv.add_argument("--process_id", type=int, default=None,
-                     help="Multi-host runs (not yet ported).")
+                     help="Multi-host runs (not supported: the run exits with "
+                          "an error).")
     adv.add_argument(
         "--matmul_precision", default="highest", choices=["highest", "default"],
         help="'highest': full fp32 with TF32 off for matmuls and cuDNN "
@@ -155,7 +160,9 @@ def build_parser():
     adv.add_argument("--output_alt_info", type=str, default="False",
                      help="Include alt-info columns in the --alt_fn dump.")
     adv.add_argument("--apply_baq", action="store_true",
-                     help="BAQ base-quality capping (not yet ported).")
+                     help="EXPERIMENTAL: probabilistic-realignment base "
+                          "quality capping (samtools BAQ; see bamio/baq.py). "
+                          "Decodes through the Python pileup, not the C++ one.")
     adv.add_argument("--predict_fn", default=None,
                      help="DEBUG: dump raw network probabilities to this path "
                           "(reference predict --predict_fn TSV format).")
@@ -430,23 +437,273 @@ def _filter_stages(args):
 
 
 def unported_stages(args):
-    """The stages this run would need that the port does not have yet."""
-    apply_hap_filter, apply_postfilter = _filter_stages(args)
+    """What this run asks for that the port does not have."""
     needs = {
-        "intermediate phasing and the haplotype filter (pass "
-        "--disable_intermediate_phasing)": apply_hap_filter,
-        "the Illumina postfilter (pass --enable_postfilter False)": apply_postfilter,
-        "PoN tagging (pass --panel_of_normals None)":
-            bool(args.panel_of_normals) and not args.disable_nonsomatic_tagging,
-        "Verdict (pass --disable_verdict)": not args.disable_verdict,
-        "genotyping/hybrid mode": bool(args.genotyping_mode_vcf_fn
-                                       or args.hybrid_mode_vcf_fn),
-        "BAQ (--apply_baq)": args.apply_baq,
         "several GPUs (--device_count)": (args.device_count or 1) > 1,
         "multi-host runs": (args.coordinator_address is not None
                             or (args.num_processes or 1) > 1),
     }
     return [name for name, needed in needs.items() if needed]
+
+
+def _apply_chunk_filters(pipe, chunk, res, apply_hap_filter, apply_postfilter, args):
+    """Run hard filters against the chunk's entry table (STEP 4 equivalents).
+
+    Long-read: internal phasing (phasing/phaser.py replaces longphase/
+    whatshap) + the 9-verdict haplotype filter; Illumina: the no-phasing
+    postfilter family."""
+    pe, aff_counts, neg_counts, region_start, region_end = pipe.build_chunk_views(chunk)
+    pass_rows = [r for r in res.snv_rows if r["FILTER"] == "PASS"]
+    if not pass_rows:
+        return
+
+    from clairs_to_tpu_torch.postcall.hardfilter import (
+        fisher_exact,
+        fisher_exact_reference,
+    )
+
+    fisher = (fisher_exact_reference if args.exact_reference_fisher
+              else fisher_exact)
+    if apply_hap_filter:
+        from clairs_to_tpu_torch.phasing.phaser import phase_and_tag
+        from clairs_to_tpu_torch.postcall.haplotype import (
+            HaplotypeFilterEngine,
+            apply_haplotype_filters,
+        )
+
+        # Germline sets from this chunk's calling output, mirroring the
+        # reference's germline_vcf_fn = snv_pileup.vcf: PASS 0/1 rows feed
+        # the het set, PASS 1/1 rows the hom set (haplotype_filtering.py:
+        # 910-916).  Phasing anchors additionally require a germline-like
+        # AF band — the analog of select_hetero_snp's qual-percentile drop.
+        het_rows = [
+            r for r in res.snv_rows
+            if r["GT"] == "0/1" and len(r["REF"]) == 1 and len(r["ALT"]) == 1
+        ]
+        hom_rows = [
+            r for r in res.snv_rows
+            if r["GT"] == "1/1" and len(r["REF"]) == 1 and len(r["ALT"]) == 1
+        ]
+        anchors = [
+            (r["POS"] - 1, r["REF"], r["ALT"])
+            for r in het_rows if r["AF"] >= 0.35
+        ]
+        tagged = False
+        ext_tool = None
+        if _str2bool(args.use_longphase_for_intermediate_phasing or ""):
+            ext_tool = "longphase"
+        elif _str2bool(args.use_whatshap_for_intermediate_phasing or ""):
+            ext_tool = "whatshap"
+        if ext_tool and anchors:
+            from clairs_to_tpu_torch.phasing import external as extph
+
+            binary = extph.resolve_binary(
+                args.longphase if ext_tool == "longphase" else args.whatshap,
+                ext_tool)
+            if binary is None:
+                if not getattr(args, "_ext_phaser_warned", False):
+                    print(f"[WARNING] --use_{ext_tool}_for_intermediate_"
+                          f"phasing requested but no {ext_tool} binary found"
+                          " — falling back to the internal phaser.")
+                    args._ext_phaser_warned = True
+            else:
+                ph_dir = os.path.join(args.output_dir, "tmp",
+                                      "phasing_output")
+                os.makedirs(ph_dir, exist_ok=True)
+                tag = f"{chunk.ctg_name}_{chunk.chunk_id}"
+                het_vcf = extph.write_het_vcf(
+                    os.path.join(ph_dir, f"het_{tag}.vcf"),
+                    chunk.ctg_name, anchors, sample=args.sample_name)
+                phased = extph.run_external_phase(
+                    ext_tool, binary, het_vcf, pipe.bam_path, args.ref_fn,
+                    os.path.join(ph_dir, f"tumor_phased_{tag}"),
+                    chunk.ctg_name, platform=cfg.platform_family(args.platform),
+                    threads=args.threads)
+                if phased is None:
+                    print(f"[WARNING] {ext_tool} phase failed for chunk "
+                          f"{tag} — falling back to the internal phaser.")
+                else:
+                    orients = extph.load_phase_orientations(phased, anchors)
+                    hp = extph.phase_and_tag_with_orientations(pe, anchors, orients)
+                    tagged = True
+        if not tagged:
+            hp = phase_and_tag(pe, anchors)
+        if pipe.metrics is not None:
+            pipe.metrics.count("phasing_anchors", len(anchors))
+            pipe.metrics.count("reads_haplotagged", int(np.count_nonzero(hp)))
+            pipe.metrics.count("reads_phasing_input", len(hp))
+        engine = HaplotypeFilterEngine(
+            pe,
+            hetero_germline=[(r["POS"] - 1, r["ALT"]) for r in het_rows],
+            homo_germline=[(r["POS"] - 1, r["ALT"]) for r in hom_rows],
+            disable_read_start_end_filtering=args.disable_read_start_end_filtering,
+            site_positions=[r["POS"] - 1 for r in pass_rows],
+            fisher=fisher,
+        )
+        batch = engine.verdict_batch(
+            (row["POS"] - 1, row["REF"], row["ALT"], row["AF"])
+            for row in pass_rows
+        )
+        verdicts = {
+            (row["CHROM"], row["POS"]): batch[row["POS"] - 1]
+            for row in pass_rows
+        }
+        apply_haplotype_filters(res.snv_rows, verdicts)
+    elif apply_postfilter:
+        # The reference always runs the realignment filter for ilmn before
+        # the postfilter (run_clairs_to:1449-1482); --enable_realignment
+        # defaults on for the short-read family.
+        enable_realign = (
+            args.enable_realignment is None
+            or _str2bool(args.enable_realignment)
+        )
+        if enable_realign:
+            from clairs_to_tpu_torch.postcall.realignment import realign_filter
+
+            n_re = realign_filter(pipe.bam_path, pipe.fasta, pass_rows,
+                                  window=getattr(pe, "_win", None))
+            if n_re:
+                print(f"[INFO] Realignment filter failed {n_re} call(s)")
+            pass_rows = [r for r in pass_rows if r["FILTER"] == "PASS"]
+            if not pass_rows:
+                return
+
+        from clairs_to_tpu_torch.postcall.hardfilter import (
+            HardFilterEngine,
+            apply_hard_filters,
+        )
+
+        engine = HardFilterEngine(
+            pe,
+            disable_read_start_end_filtering=args.disable_read_start_end_filtering,
+            site_positions=[r["POS"] - 1 for r in pass_rows],
+            fisher=fisher,
+        )
+        batch = engine.verdict_batch(
+            (row["POS"] - 1, row["REF"], row["ALT"]) for row in pass_rows
+        )
+        verdicts = {
+            (row["CHROM"], row["POS"]): batch[row["POS"] - 1]
+            for row in pass_rows
+        }
+        apply_hard_filters(res.snv_rows, verdicts)
+
+
+def _load_verdict_resources(args, chunks):
+    """(resource_loci, gc_lookup, rt_lookup) from --cna_resource_dir."""
+    if not (args.cna_resource_dir and os.path.isdir(args.cna_resource_dir)):
+        return None, None, None
+    from clairs_to_tpu_torch.verdict.resources import load_cna_resources
+
+    ctgs_present = sorted({c.ctg_name for c in chunks})
+    loci, gc_lookup, rt_lookup = load_cna_resources(
+        args.cna_resource_dir, ctgs_present
+    )
+    if loci:
+        print(f"[INFO] Verdict: G1000 loci from {args.cna_resource_dir} "
+              f"({sum(len(v[0]) for v in loci.values())} loci, "
+              f"GC={'yes' if gc_lookup else 'no'} "
+              f"RT={'yes' if rt_lookup else 'no'})")
+    return loci or None, gc_lookup, rt_lookup
+
+
+def _accumulate_verdict_counts(pipe, chunk, res, resource_loci, acc):
+    """Count verdict alleles at this chunk's loci while its views are live.
+
+    The in-process analog of the reference's per-contig alleleCounter pass
+    (src/cna_germline_tagging.py:56-69): resource loci when provided, else
+    het-like calls (0/1 single-base, AF in [0.3, 0.7]) from this chunk.
+    """
+    from clairs_to_tpu_torch.verdict.allele_counter import allele_counts_at
+
+    ctg = chunk.ctg_name
+    if resource_loci is not None:
+        if ctg not in resource_loci:
+            return
+        pos_all, ref_idx_all, alt_idx_all = resource_loci[ctg]
+        m = (pos_all >= chunk.ctg_start) & (pos_all < chunk.ctg_end)
+        if not m.any():
+            return
+        positions, ref_idx, alt_idx = pos_all[m], ref_idx_all[m], alt_idx_all[m]
+    else:
+        het = [
+            r for r in res.snv_rows
+            if r["GT"] == "0/1" and len(r["REF"]) == 1 and len(r["ALT"]) == 1
+            and 0.3 <= r["AF"] <= 0.7
+        ]
+        if not het:
+            return
+        positions = np.array([r["POS"] - 1 for r in het])
+        ref_idx = np.array(["ACGT".index(r["REF"]) for r in het])
+        alt_idx = np.array(["ACGT".index(r["ALT"]) for r in het])
+    pe, *_ = pipe.build_chunk_views(chunk)
+    counts = allele_counts_at(pe, positions)
+    rows_i = np.arange(len(positions))
+    entry = acc.setdefault(ctg, {"pos": [], "refc": [], "altc": []})
+    entry["pos"].append(positions)
+    entry["refc"].append(counts[rows_i, ref_idx])
+    entry["altc"].append(counts[rows_i, alt_idx])
+
+
+def _run_verdict_stage(args, verdict_acc, snv_vcf_path, gc_lookup, rt_lookup):
+    """Verdict (CNA/purity germline separation) on the final SNV VCF.
+
+    Consumes allele counts accumulated during the chunk loop; without a
+    --cna_resource_dir the het-like calls served as loci — enough to
+    estimate purity/ploidy when the genome carries CNA signal.
+    """
+    from clairs_to_tpu_torch.verdict.pipeline import run_verdict
+
+    rows = []
+    header = []
+    with open(snv_vcf_path) as f:
+        for line in f:
+            if line.startswith("#"):
+                header.append(line)
+                continue
+            cols = line.rstrip("\n").split("\t")
+            fmt = cols[8].split(":")
+            vals = cols[9].split(":")
+            info = dict(zip(fmt, vals))
+            rows.append(
+                dict(
+                    CHROM=cols[0], POS=int(cols[1]), REF=cols[3], ALT=cols[4],
+                    QUAL=float(cols[5]), FILTER=cols[6], INFO=cols[7],
+                    AF=float(info.get("AF", 0)), DP=int(info.get("DP", 0)),
+                    _cols=cols,
+                )
+            )
+    counts_by_ctg = {
+        ctg: (
+            np.concatenate(e["pos"]),
+            np.concatenate(e["refc"]),
+            np.concatenate(e["altc"]),
+        )
+        for ctg, e in verdict_acc.items()
+        if e["pos"]
+    }
+    n_loci = sum(len(v[0]) for v in counts_by_ctg.values())
+    if n_loci < 12:
+        print("[INFO] Verdict skipped: too few usable loci")
+        return
+    cna_dir = os.path.join(args.output_dir, "tmp", "cna_output")
+    result = run_verdict(None, None, rows, cna_output_dir=cna_dir,
+                         sample_name=args.sample_name,
+                         penalty=args.aspcf_penalty,
+                         gc_lookup=gc_lookup, rt_lookup=rt_lookup,
+                         counts_by_ctg=counts_by_ctg)
+    if result.applied and result.n_tagged:
+        with open(snv_vcf_path, "w") as out:
+            out.writelines(header)
+            for r in rows:
+                cols = r["_cols"]
+                cols[6] = r["FILTER"]
+                cols[7] = r["INFO"]
+                out.write("\t".join(cols) + "\n")
+    print(
+        f"[INFO] Verdict: purity={result.purity} ploidy={result.ploidy} "
+        f"tagged={result.n_tagged} ({result.reason or 'applied'})"
+    )
 
 
 def main(argv=None):
@@ -492,6 +749,7 @@ def _pipeline_body(args, metrics, t0, tee, engines=None):
     from clairs_to_tpu_torch.postcall.postprocess import postprocess_vcf
     from clairs_to_tpu_torch.utils.metrics import device_trace
     from clairs_to_tpu_torch.vcf.sort import merge_vcf_files
+    from clairs_to_tpu_torch.vcf.tabix import write_tabix_vcf
     from clairs_to_tpu_torch.vcf.writer import VcfWriter
 
     tmp_dir = os.path.join(args.output_dir, "tmp")
@@ -541,11 +799,26 @@ def _pipeline_body(args, metrics, t0, tee, engines=None):
 
     missing = unported_stages(args)
     if missing:
-        sys.exit("[ERROR] This run needs stages that clairs_to_tpu_torch does not "
+        sys.exit("[ERROR] This run needs what clairs_to_tpu_torch does not "
                  "have yet: " + "; ".join(missing) + ". Use clairs_to_tpu for them.")
 
     default_qual(args)
     call_indels = not _str2bool(args.disable_indel_calling)
+
+    genotyping_sites = None
+    genotyping_mode = None
+    genotyping_vcf = args.genotyping_mode_vcf_fn or args.hybrid_mode_vcf_fn
+    if genotyping_vcf:
+        from clairs_to_tpu_torch.vcf.reader import VcfReader
+
+        genotyping_mode = "genotyping" if args.genotyping_mode_vcf_fn else "hybrid"
+        reader = VcfReader(genotyping_vcf, show_ref=True, skip_genotype=True)
+        reader.read_vcf()
+        genotyping_sites = {}
+        for rec in reader.variant_dict.values():
+            genotyping_sites.setdefault(rec.ctg_name, []).append(rec.pos - 1)
+        genotyping_sites = {c: sorted(p) for c, p in genotyping_sites.items()}
+
     bed_tree = bed_tree_from(args.bed_fn) if args.bed_fn else None
     indel_bed_tree = (
         bed_tree_from(args.call_indels_only_in_these_regions)
@@ -562,6 +835,9 @@ def _pipeline_body(args, metrics, t0, tee, engines=None):
         show_ref=args.print_ref_calls,
         select_indel_candidates=call_indels,
         max_indel_length=args.max_indel_length,
+        genotyping_sites=genotyping_sites,
+        genotyping_mode=genotyping_mode,
+        apply_baq=args.apply_baq,
         predict_fn=args.predict_fn,
         bed_tree=bed_tree,
         indel_bed_tree=indel_bed_tree,
@@ -569,6 +845,11 @@ def _pipeline_body(args, metrics, t0, tee, engines=None):
         output_depth=_str2bool(args.output_depth),
         output_alt_info=_str2bool(args.output_alt_info),
     )
+    apply_hap_filter, apply_postfilter = _filter_stages(args)
+    # the decode-ahead workers assemble the filters' site-independent data
+    options.precompute_filter_assembly = (
+        (apply_hap_filter or apply_postfilter)
+        and os.environ.get("CLAIRS_TO_TPU_PRECOMPUTE_ASSEMBLY", "1") != "0")
     # decode-ahead workers: up to one per core, capped at 4
     options.decode_workers = int(os.environ.get(
         "CLAIRS_TO_TPU_DECODE_WORKERS",
@@ -581,6 +862,11 @@ def _pipeline_body(args, metrics, t0, tee, engines=None):
 
     snv_paths, indel_paths = [], []
     n_cand = 0
+    verdict_acc = {}
+    resource_loci, gc_lookup, rt_lookup = (
+        _load_verdict_resources(args, chunks)
+        if not args.disable_verdict else (None, None, None)
+    )
     todo = []
     for ch in chunks:
         sp_path = os.path.join(vcf_out, f"p_snv_{ch.ctg_name}_{ch.chunk_id}.vcf")
@@ -621,6 +907,16 @@ def _pipeline_body(args, metrics, t0, tee, engines=None):
         nonlocal n_cand
         res = pipe.finish_chunk(pending)
         n_cand += res.n_candidates
+
+        # long-read: internal phasing + 9-verdict haplotype filtering; ilmn:
+        # realignment + no-phasing postfilter (run_clairs_to STEP 4,
+        # :1450-1514).  Both read the chunk's decoded views: before evict_views
+        if res.snv_rows and (apply_hap_filter or apply_postfilter):
+            with metrics.stage("hard_filters"):
+                _apply_chunk_filters(
+                    pipe, ch, res, apply_hap_filter, apply_postfilter, args
+                )
+
         sp = os.path.join(vcf_out, f"p_snv_{ch.ctg_name}_{ch.chunk_id}.vcf")
         w = VcfWriter(sp, ctg_name=ch.ctg_name, ref_fn=args.ref_fn,
                       sample_name=args.sample_name, show_ref_calls=args.print_ref_calls)
@@ -639,6 +935,9 @@ def _pipeline_body(args, metrics, t0, tee, engines=None):
         metrics.count("candidates", res.n_candidates)
         metrics.count("snv_rows", len(res.snv_rows))
         metrics.count("indel_rows", len(res.indel_rows))
+        if not args.disable_verdict:
+            with metrics.stage("verdict_counts"):
+                _accumulate_verdict_counts(pipe, ch, res, resource_loci, verdict_acc)
         pipe.evict_views(ch)
         now = time.time()
         print(f"[INFO] {ch.ctg_name} chunk {ch.chunk_id + 1}/{ch.chunk_num}: "
@@ -660,10 +959,29 @@ def _pipeline_body(args, metrics, t0, tee, engines=None):
         while inflight:
             _finalize_chunk(*inflight.popleft())
 
-    # --- merge + postprocess (run_clairs_to STEPs 3/5) ---------------------
+    # --- merge + postcall (sort_vcf -> PoN -> postprocess, run_clairs_to
+    # STEPs 3/5) ----------------------------------------------------------
     snv_merged = os.path.join(vcf_out, "snv_pileup.vcf")
     with metrics.stage("merge"):
         merge_vcf_files(snv_paths, snv_merged)
+
+    if args.panel_of_normals and not args.disable_nonsomatic_tagging:
+        from clairs_to_tpu_torch.postcall.nonsomatic import tag_nonsomatic_file
+
+        with metrics.stage("pon_tagging"):
+            tag_nonsomatic_file(
+                snv_merged, snv_merged,
+                args.panel_of_normals.split(","),
+                require_allele_matching=(
+                    [_str2bool(x) for x in
+                     args.panel_of_normals_require_allele_matching.split(",")]
+                    if args.panel_of_normals_require_allele_matching
+                    else None
+                ),
+                print_nonsomatic_calls=not args.do_not_print_nonsomatic_calls,
+                drop_nonpass=False,
+            )
+
     snv_final = os.path.join(args.output_dir, f"{args.snv_output_prefix}.vcf")
     postprocess_vcf(
         snv_merged, snv_final, platform=args.platform, ref_fn=args.ref_fn,
@@ -671,6 +989,21 @@ def _pipeline_body(args, metrics, t0, tee, engines=None):
         qual_cutoff_phaseable_region=args.qual_cutoff_phaseable_region,
         qual_cutoff_unphaseable_region=args.qual_cutoff_unphaseable_region,
     )
+
+    if genotyping_vcf:
+        from clairs_to_tpu_torch.postcall.addback import add_back_missing
+
+        n_added = add_back_missing(snv_final, genotyping_vcf, fasta,
+                                   sample_name=args.sample_name)
+        if n_added:
+            print(f"[INFO] Added back {n_added} missing genotyping sites")
+
+    if not args.disable_verdict:
+        with metrics.stage("verdict"):
+            _run_verdict_stage(args, verdict_acc, snv_final, gc_lookup, rt_lookup)
+
+    with metrics.stage("tabix"):
+        write_tabix_vcf(snv_final)  # snv.vcf.gz + .tbi (final output contract)
     print(f"[INFO] SNV output: {snv_final}")
     if call_indels:
         indel_merged = os.path.join(vcf_out, "indel_pileup.vcf")
@@ -682,6 +1015,8 @@ def _pipeline_body(args, metrics, t0, tee, engines=None):
             qual_cutoff_phaseable_region=args.qual_indel_cutoff_phaseable_region,
             qual_cutoff_unphaseable_region=args.qual_indel_cutoff_unphaseable_region,
         )
+        with metrics.stage("tabix"):
+            write_tabix_vcf(indel_final)
         print(f"[INFO] Indel output: {indel_final}")
     print(f"[INFO] {n_cand} candidates, total time {time.time() - t0:.1f}s")
     metrics.report(out=tee)

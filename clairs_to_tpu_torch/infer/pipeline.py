@@ -31,12 +31,6 @@ from clairs_to_tpu_torch.infer.engine import InferenceEngine
 FLANK = cfg.FLANKING_BASE_NUM
 WIN = cfg.NO_OF_POSITIONS
 
-# reference byte -> filter-view token (A,C,G,T -> 0..3, else 10), copied from
-# clairs_to_tpu/postcall/hardfilter.py
-_REF_TOK = np.full(256, 10, np.int16)
-for _i, _ch in enumerate("ACGT"):
-    _REF_TOK[ord(_ch)] = _i
-
 
 @dataclass
 class PipelineOptions:
@@ -57,7 +51,8 @@ class PipelineOptions:
     # restricts candidates to these sites, 'hybrid' unions with discovery
     genotyping_sites: Optional[dict] = None
     genotyping_mode: Optional[str] = None  # 'genotyping' | 'hybrid' | None
-    # BAQ (clairs_to_tpu/bamio/baq.py) is not ported yet: True is refused
+    # EXPERIMENTAL: probabilistic realignment base-quality capping
+    # (samtools mpileup's default-on BAQ; see bamio/baq.py for status)
     apply_baq: bool = False
     # region restriction (run_clairs_to -b/--bed_fn): BedTree or None
     bed_tree: object = None
@@ -132,8 +127,6 @@ class CallingPipeline:
         self.snv_engine = snv_engine
         self.indel_engine = indel_engine
         self.opt = options or PipelineOptions()
-        if self.opt.apply_baq:
-            raise NotImplementedError("BAQ is not part of the port yet")
         self.metrics = metrics  # optional RunMetrics for sub-stage timing
         self._bam = None          # lazy: pure-Python fallback reader
         import threading as _threading
@@ -165,7 +158,7 @@ class CallingPipeline:
         ref_seq = self.fasta.fetch(ctg, ref_start, ref_end)
 
         pe = None
-        if self.opt.use_native:
+        if self.opt.use_native and not self.opt.apply_baq:
             from clairs_to_tpu_torch.bamio import native
 
             if native.available():
@@ -188,6 +181,8 @@ class CallingPipeline:
                 s_lo = max(f_lo - ref_start, 0)
                 s_hi = min(f_hi - ref_start, len(ref_u8))
                 if s_hi > s_lo:
+                    from clairs_to_tpu_torch.postcall.hardfilter import _REF_TOK
+
                     ref_tok[s_lo + ref_start - f_lo : s_hi + ref_start - f_lo] = \
                         _REF_TOK[ref_u8[s_lo:s_hi]]
                 def _reduced(stream_):
@@ -252,6 +247,15 @@ class CallingPipeline:
             for read in self._bam.fetch(
                 ctg, region_start, region_end, excl_flags=cfg.SAMTOOLS_VIEW_FILTER_FLAG
             ):
+                if self.opt.apply_baq:
+                    from clairs_to_tpu_torch.bamio.baq import apply_baq
+
+                    span_lo = max(read.pos - 7, ref_start)
+                    span_hi = min(read.reference_end() + 7, ref_start + len(ref_seq))
+                    window = ref_seq[span_lo - ref_start : span_hi - ref_start]
+                    read.qual = apply_baq(window, read.seq, read.qual).astype(
+                        read.qual.dtype
+                    )
                 pe.add_read(read)
 
         aff_counts, aff_depth = pe.channel_counts(

@@ -75,6 +75,7 @@ def postprocess_vcf(
     af=None,
     cmdline=None,
     is_indel=False,
+    compress_vcf=False,
 ):
     fam = cfg.platform_family(platform)
     qd = cfg.MIN_THRED_QUAL_INDEL if is_indel else cfg.MIN_THRED_QUAL
@@ -141,4 +142,9 @@ def postprocess_vcf(
             row = mark_low_qual(contig_dict[ctg][pos], fam, q_pass, q_ph, q_un)
             writer.vcf_writer.write(row)
     writer.close()
+
+    if compress_vcf:
+        from clairs_to_tpu_torch.vcf.tabix import write_tabix_vcf
+
+        write_tabix_vcf(output_fn)  # .gz + .tbi alongside
     return {"af_filtered": af_filter_count}
