@@ -24,10 +24,26 @@ Phases, each fatal on failure:
      the PoN must each mark a row, and TabixReader must read the outputs
      back.  Then the same flags on the 200 kb region, card against CPU;
   6. ``run -p ilmn`` with its default flags (realignment, the postfilter) on
-     a simulated 300 kb Illumina BAM at 50x, card against CPU.
-Each run's GRU launches are counted from 0.  Prints the card's name and power limit, a ``kernels`` JSON line, and as
-the last line ``{"ok": true, "device": {...}}``.  Exits non-zero without a
-GPU.  Working files go under build/chip_smoke/ in the checkout.
+     a simulated 300 kb Illumina BAM at 50x, card against CPU;
+  7. ``serve``: the port's server on a thread of this process, ``--preload
+     ont``, three requests over loopback HTTP with phase 5's flags (the
+     200 kb region twice, then the 2 Mb genome).  Every answer must come from
+     cached engines with returncode 0 and more kernel launches than before,
+     ``/health`` must list one engine, and the VCFs must equal phase 5's;
+     each request's seconds stand beside the batch run's (WARM_SAVING);
+  8. two processes on the one card: ranks 0 and 1 of one coordinator on
+     loopback as ``python -m clairs_to_tpu_torch run`` children with
+     ``--chunk_num 4``, started with the kernel and the two C++ libraries of
+     an ONT run deleted, so both build them at once.  Both must own chunks and launch
+     the kernel, only rank 0 may write the output, and the output must equal
+     a single-process run's;
+  9. replicas on the one card: an engine with ``devices=[cuda:0, cuda:0]``
+     against the one-device engine at 8192 rows (8 launches a forward
+     instead of 4, the split, the per-part events).
+Each path's GRU launches are counted from 0.  Prints the card's name and power
+limit, a ``kernels`` JSON line, and as the last line ``{"ok": true,
+"device": {...}}``.  Exits non-zero without a GPU.  Working files go under
+build/chip_smoke/ in the checkout.
 """
 
 import argparse
@@ -39,7 +55,10 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -55,15 +74,7 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 KERNEL_TOL = 1e-5     # kernel vs plain GRU outputs, fp32 both
 ENGINE_TOL = 5e-5     # class-1 probabilities, kernel engine vs plain-GRU engine
-# bamio/simulate ONT read model (copied from clairs_to_tpu/bench/profiles.py)
-ONT_PROFILE = dict(read_length=500, error_rate=0.002,
-                   eval_profile=dict(hp_error_mult=4.0, strand_err_mult=1.6,
-                                     qual_decay=6.0, burst_rate=0.08,
-                                     burst_len=40, burst_qual=8))
-ILMN_PROFILE = dict(read_length=150, error_rate=0.001,
-                    eval_profile=dict(hp_error_mult=1.5, strand_err_mult=2.0,
-                                      qual_decay=10.0, burst_rate=0.02,
-                                      burst_len=20, burst_qual=6))
+REPLICA_TOL = 5e-5    # class-1 probabilities, two replicas vs one device
 GENOME_LEN = 2_000_000
 ILMN_GENOME_LEN = 300_000
 COVERAGE = 60
@@ -71,6 +82,14 @@ COVERAGE = 60
 
 def log(msg):
     print(msg, flush=True)
+
+
+def read_model(platform):
+    """bamio/simulate's read model of a platform family (its coverage is set
+    by the caller)."""
+    from clairs_to_tpu_torch.bench.profiles import PROFILES
+
+    return {k: v for k, v in PROFILES[platform].items() if k != "coverage"}
 
 
 def card_line():
@@ -169,7 +188,7 @@ def phase_kernel(gru, dev, prev=None):
         bound = H ** -0.5
         w = torch.from_numpy(rng.uniform(-bound, bound, (H, 3 * H)).astype(np.float32)).to(dev)
         b = torch.from_numpy(rng.uniform(-bound, bound, 3 * H).astype(np.float32)).to(dev)
-        for B in (8192, 8191, 1000):
+        for B in (8192, 8191, 4096, 1000):   # 4096: a replica's half
             xg = torch.from_numpy(rng.normal(size=(T, B, 3 * H)).astype(np.float32)).to(dev)
             for reverse in (False, True):
                 got = gru.gru_direction(xg, w, b, reverse=reverse)
@@ -207,25 +226,36 @@ def phase_kernel(gru, dev, prev=None):
     return max_err, timings
 
 
-def phase_engine(dev):
-    from clairs_to_tpu_torch.infer.engine import InferenceEngine
+def _flagship(mode, dev):
+    """(aff, neg, likelihood, engine keywords) of the flagship ONT weights."""
     from clairs_to_tpu_torch.models.checkpoint import load_checkpoint_auto
-    from clairs_to_tpu_torch.ops import gru
     from clairs_to_tpu_torch.ops.posterior import load_likelihood_matrix
 
+    sub, n_al = ("", 4) if mode == "snv" else ("indel", 6)
+    aff, cc = load_checkpoint_auto(os.path.join(ASSETS, sub, "aff.npz"), mode, "cvt", dev)
+    neg, gc = load_checkpoint_auto(os.path.join(ASSETS, sub, "neg.npz"), mode, "bigru", dev)
+    lik = load_likelihood_matrix(os.path.join(ASSETS, sub, "likelihood_matrix.txt"), n_al)
+    return aff, neg, lik, dict(mode=mode, device_batch=8192, cvt_config=cc, bigru_config=gc)
+
+
+def _engine_batch(n=8192):
     rng = np.random.default_rng(1)
-    n = 8192
     x_aff = rng.integers(-30, 31, size=(n, 33, 34)).astype(np.int16)
     x_neg = (x_aff + rng.integers(-2, 3, size=x_aff.shape)).astype(np.int16)
     cov = rng.integers(10, 120, size=n).astype(np.float32)
+    return x_aff, x_neg, cov
+
+
+def phase_engine(dev):
+    from clairs_to_tpu_torch.infer.engine import InferenceEngine
+    from clairs_to_tpu_torch.ops import gru
+
+    x_aff, x_neg, cov = _engine_batch()
     out = {}
-    for mode, sub, n_al in (("snv", "", 4), ("indel", "indel", 6)):
-        aff, cc = load_checkpoint_auto(os.path.join(ASSETS, sub, "aff.npz"), mode, "cvt", dev)
-        neg, gc = load_checkpoint_auto(os.path.join(ASSETS, sub, "neg.npz"), mode, "bigru", dev)
-        lik = load_likelihood_matrix(os.path.join(ASSETS, sub, "likelihood_matrix.txt"), n_al)
-        kw = dict(mode=mode, device_batch=8192, cvt_config=cc, bigru_config=gc, device=dev)
-        kern = InferenceEngine(aff, neg, lik, **kw)
-        plain = InferenceEngine(aff, neg, lik, use_kernel=False, **kw)
+    for mode in ("snv", "indel"):
+        aff, neg, lik, kw = _flagship(mode, dev)
+        kern = InferenceEngine(aff, neg, lik, device=dev, **kw)
+        plain = InferenceEngine(aff, neg, lik, use_kernel=False, device=dev, **kw)
         before = gru.gru_direction.launches
         a = kern.run_batch(x_aff, x_neg, cov, cov)
         launched = gru.gru_direction.launches - before
@@ -277,24 +307,32 @@ def _calls(path, filt="PASS"):
 OPT_OUT = ("--disable_intermediate_phasing", "--disable_verdict", "--panel_of_normals", "None")
 
 
+def _cli_args(ds, out_dir, device, platform="ont", extra=()):
+    args = ["-T", ds["bam"], "-R", ds["fasta"], "-o", out_dir, "-t", "8", "-p", platform,
+            "--device", device, *extra]
+    if device == "cpu":
+        args += ["--device_batch", "1024"]
+    return args
+
+
+def _summary(text):
+    """The last RunMetricsSummary of a run's log or output."""
+    return json.loads(re.findall(r"RunMetricsSummary: (\{.*\})", text)[-1])
+
+
 def _run_cli(ds, out_dir, device, platform="ont", extra=()):
     """One ``run`` through the CLI's entry point; returns (wall seconds,
     candidates, the run's stage seconds and counters)."""
     from clairs_to_tpu_torch.cli.run import main
 
-    args = ["-T", ds["bam"], "-R", ds["fasta"], "-o", out_dir, "-t", "8", "-p", platform,
-            "--device", device, *extra]
-    if device == "cpu":
-        args += ["--device_batch", "1024"]
     t0 = time.time()
-    rc = main(args)
+    rc = main(_cli_args(ds, out_dir, device, platform, extra))
     wall = time.time() - t0
     if rc != 0:
         raise AssertionError(f"run exited {rc}")
     text = open(os.path.join(out_dir, "run_clairs_to_tpu_torch.log")).read()
     n_cand = int(re.findall(r"\[INFO\] (\d+) candidates, total time", text)[-1])
-    summary = json.loads(re.findall(r"RunMetricsSummary: (\{.*\})", text)[-1])
-    return wall, n_cand, summary
+    return wall, n_cand, _summary(text)
 
 
 def _counted_run(tag, card, ds, out_dir, platform="ont", extra=()):
@@ -310,23 +348,25 @@ def _counted_run(tag, card, ds, out_dir, platform="ont", extra=()):
     log(f"[{tag}] counters {json.dumps(summary['counters'])}")
     if launches <= 0:
         raise AssertionError(f"{tag}: the run never launched the GRU kernel")
+    if summary["counters"].get("gru_launches") != launches:
+        raise AssertionError(f"{tag}: the run's gru_launches counter is not the wrapper's count")
     return dict(candidates=n_cand, wall_s=wall, cand_per_s=n_cand / wall, launches=launches,
                 stages=summary["stages"], counters=summary["counters"])
 
 
-def _same_calls(tag, gpu_dir, cpu_dir, names=("snv.vcf", "indel.vcf")):
-    """The card's rows against the CPU path's: same sites, alleles, FILTER,
-    INFO and GT, QUAL within 0.01."""
+def _same_calls(tag, gpu_dir, cpu_dir, names=("snv.vcf", "indel.vcf"), who=("cuda", "cpu")):
+    """One run's rows against another's (by default the card's against the
+    CPU path's): same sites, alleles, FILTER, INFO and GT, QUAL within 0.01."""
     total = 0
     for name in names:
         want = _calls(os.path.join(cpu_dir, name), None)
         got = _calls(os.path.join(gpu_dir, name), None)
         gap = max((abs(a[-1] - b[-1]) for a, b in zip(want, got)), default=0.0)
-        log(f"[{tag}] {name}: {len(got)} rows on cuda, {len(want)} on cpu, "
+        log(f"[{tag}] {name}: {len(got)} rows on {who[0]}, {len(want)} on {who[1]}, "
             f"largest QUAL gap {gap:.4f}")
         if [r[:-1] for r in got] != [r[:-1] for r in want] or gap > 0.01:
             differ = [(a, b) for a, b in zip(want, got) if a[:-1] != b[:-1]][:3]
-            raise AssertionError(f"{tag} {name}: cuda and cpu calls differ: {differ}")
+            raise AssertionError(f"{tag} {name}: {who[0]} and {who[1]} calls differ: {differ}")
         total += len(got)
     if not total:
         raise AssertionError(f"{tag}: no rows to compare")
@@ -437,7 +477,8 @@ def phase_default_ont(card, ds, genome_len, region):
                pon_tagged=n_pon, verdict_tagged=n_verdict)
 
     gpu_dir, cpu_dir = os.path.join(WORK, "default_cuda_region"), os.path.join(WORK, "default_cpu")
-    _run_cli(ds, gpu_dir, "cuda", extra=extra + ("-r", region))
+    wall, _n, summary = _run_cli(ds, gpu_dir, "cuda", extra=extra + ("-r", region))
+    res.update(pon=pon, region=dict(wall_s=wall, stages=summary["stages"]))
     _run_cli(ds, cpu_dir, "cpu", extra=extra + ("-r", region))
     _same_calls(f"default {region}", gpu_dir, cpu_dir)
     return res
@@ -452,7 +493,7 @@ def phase_ilmn(card, genome_len):
     t0 = time.time()
     ds = make_dataset(os.path.join(WORK, "data_ilmn"), seed=9, genome_len=genome_len,
                       coverage=50, n_snv=max(20, genome_len // 10_000), n_indel=0,
-                      n_germline=max(10, genome_len // 10_000), **ILMN_PROFILE)
+                      n_germline=max(10, genome_len // 10_000), **read_model("ilmn"))
     log(f"[ilmn] simulated {genome_len} bp Illumina at 50x in {time.time() - t0:.1f} s")
     calls = []
     real = realignment.realign_filter
@@ -483,8 +524,222 @@ def phase_ilmn(card, genome_len):
     return res
 
 
+def _http(url, payload=None, timeout=600):
+    """(status, JSON body) of a GET, or of a POST of ``payload``."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.load(r)
+    except urllib.error.HTTPError as e:
+        return e.code, json.load(e)
+
+
+def phase_serve(card, ds, region, batch):
+    """Phase 7: the server on a thread of this process, engines preloaded,
+    three requests with phase 5's flags over loopback HTTP.  ``batch`` is
+    phase 5's result: its runs are what the answers must equal."""
+    from clairs_to_tpu_torch import serve
+    from clairs_to_tpu_torch.ops import gru
+
+    t0 = time.time()
+    srv = serve.make_server("127.0.0.1", 0, preload="ont", device="cuda")
+    preload_s = time.time() - t0
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    extra = ("--panel_of_normals", batch["pon"])
+    plan = [("region", extra + ("-r", region), "default_cuda_region", batch["region"]),
+            ("region again", extra + ("-r", region), "default_cuda_region", batch["region"]),
+            ("genome", extra, "default_cuda", batch)]
+    answers = []
+    gru.gru_direction.launches = 0
+    try:
+        for k, (what, flags, batch_dir, batch_run) in enumerate(plan):
+            out_dir = os.path.join(WORK, f"serve_{k}")
+            before = gru.gru_direction.launches
+            status, r = _http(base + "/v1/call", {"argv": _cli_args(ds, out_dir, "cuda",
+                                                                      extra=flags)})
+            launched = gru.gru_direction.launches - before
+            if status != 200 or r.get("returncode") != 0:
+                raise AssertionError(f"serve: request {k} ({what}) answered {status}: {r}")
+            stages, counters = r["metrics"]["stages"], r["metrics"]["counters"]
+            log(f"[serve] {card}: request {k} ({what}): {r['seconds']:.2f} s, engines_cached "
+                f"{r['engines_cached']}, GRU launches {launched}; the batch run took "
+                f"{batch_run['wall_s']:.2f} s")
+            log(f"[serve] request {k} stages {json.dumps(stages)}")
+            log(f"[serve] batch run stages {json.dumps(batch_run['stages'])}")
+            if not r["engines_cached"]:
+                raise AssertionError(f"serve: request {k} did not find the preloaded engines")
+            if launched <= 0 or counters.get("gru_launches") != launched:
+                raise AssertionError(f"serve: request {k} launched the kernel {launched} times, "
+                                     f"its counter says {counters.get('gru_launches')}")
+            if "load_engines" in stages:
+                raise AssertionError(f"serve: request {k} loaded engines of its own")
+            _same_calls(f"serve {what}", out_dir, os.path.join(WORK, batch_dir),
+                        who=("the server", "the batch run"))
+            answers.append(dict(what=what, seconds=r["seconds"], launches=launched,
+                                stages=stages, batch_wall_s=batch_run["wall_s"]))
+        status, health = _http(base + "/health")
+        if status != 200 or health["status"] != "ok" or len(health["engines"]) != 1:
+            raise AssertionError(f"serve: /health says {health}")
+        status, bad = _http(base + "/v1/call", {"argv": []})
+        if status != 400:
+            raise AssertionError(f"serve: an empty argv answered {status}: {bad}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    launches = gru.gru_direction.launches
+    warm, cold = answers[1], batch["region"]
+    load = cold["stages"].get("load_engines", 0.0) + cold["stages"].get("engine_warmup", 0.0)
+    log(f"[serve] WARM_SAVING {card}: region as a batch run {cold['wall_s']:.2f} s "
+        f"(load_engines + engine_warmup {load:.2f} s), as a warm request "
+        f"{warm['seconds']:.2f} s; preload took {preload_s:.2f} s; /health lists "
+        f"{health['engines']}")
+    return dict(launches=launches, preload_s=preload_s, requests=answers)
+
+
+def _verdict_line(text):
+    lines = re.findall(r"\[INFO\] (Verdict: .*)", text)
+    if not lines:
+        raise AssertionError("no Verdict line in the run's output")
+    return lines[-1]
+
+
+def phase_two_process(card, ds, pon, n_candidates):
+    """Phase 8: ranks 0 and 1 of one coordinator, both on cuda:0, against a
+    single-process run with the same ``--chunk_num 4`` (which must find the
+    ``n_candidates`` of the one-chunk run).  The kernel and the
+    two C++ libraries an ONT run loads are deleted first (this process keeps
+    its loaded copies),
+    so both ranks build each of them at the same time."""
+    import socket
+
+    from clairs_to_tpu_torch.bamio import native
+    from clairs_to_tpu_torch.ops import gru
+    from clairs_to_tpu_torch.postcall import verdict_native
+
+    extra = ("--panel_of_normals", pon, "--chunk_num", "4")
+    one_dir, two_dir = os.path.join(WORK, "one_process"), os.path.join(WORK, "two_process")
+    wall, n_cand, one = _run_cli(ds, one_dir, "cuda", extra=extra)
+    log(f"[two-process] {card}: one process, 4 chunks: {n_cand} candidates in {wall:.2f} s")
+    log(f"[two-process] one process stages {json.dumps(one['stages'])}")
+    if n_cand != n_candidates:
+        raise AssertionError(f"two-process: four chunks gave {n_cand} candidates, one chunk "
+                             f"{n_candidates}")
+
+    built = [gru._SO, native._SO, verdict_native._SO]   # what an ONT run loads
+    for so in built:
+        os.remove(so)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{s.getsockname()[1]}"
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    logs = [os.path.join(WORK, f"two_process_rank{rank}.log") for rank in (0, 1)]
+    procs = []
+    t0 = time.time()
+    try:
+        for rank, path in enumerate(logs):
+            cmd = [sys.executable, "-m", "clairs_to_tpu_torch", "run",
+                   *_cli_args(ds, two_dir, "cuda", extra=extra), "--coordinator_address", addr,
+                   "--num_processes", "2", "--process_id", str(rank)]
+            with open(path, "w") as f:
+                procs.append(subprocess.Popen(cmd, cwd=REPO, env=env, stdout=f,
+                                              stderr=subprocess.STDOUT))
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall2 = time.time() - t0
+    texts = [open(path).read() for path in logs]
+    if codes != [0, 0]:
+        raise AssertionError(f"two-process: exit codes {codes}:\n{texts[0][-2000:]}\n"
+                             f"{texts[1][-2000:]}")
+    missing = [so for so in built if not os.path.exists(so)]
+    if missing:
+        raise AssertionError(f"two-process: the ranks did not rebuild {missing}")
+    ranks = []
+    for rank, text in enumerate(texts):
+        summary = _summary(text)
+        launches = summary["counters"].get("gru_launches", 0)
+        log(f"[two-process] rank {rank}: {summary['counters']['candidates']} candidates, "
+            f"GRU launches {launches}, stages {json.dumps(summary['stages'])}")
+        if f"Host {rank}/2: owns 2/4 chunks" not in text or launches <= 0:
+            raise AssertionError(f"two-process: rank {rank} owned no chunks or never launched "
+                                 f"the kernel:\n{text[-2000:]}")
+        # the Python pileup that a rank falls back to when its C++ decoder
+        # did not build or load is some fifty times slower
+        decode, decode_one = (x["stages"]["decode_tensor_build(worker)"] for x in (summary, one))
+        if decode > 30 + 10 * decode_one:
+            raise AssertionError(f"two-process: rank {rank} decoded for {decode} s against "
+                                 f"{decode_one} s in one process: no C++ decoder?")
+        ranks.append(dict(launches=launches, stages=summary["stages"],
+                          candidates=summary["counters"]["candidates"]))
+    if "SNV output" not in texts[0] or "SNV output" in texts[1] \
+            or "host 0 merges the output" not in texts[1]:
+        raise AssertionError("two-process: rank 1 must stop at the barrier and rank 0 write "
+                             "the output")
+    log(f"[two-process] {card}: two processes, 2 chunks each: {wall2:.2f} s wall, the build "
+        f"of the kernel and two C++ libraries by both ranks included")
+    _same_calls("two-process", two_dir, one_dir, who=("two processes", "one process"))
+    v_two = _verdict_line(texts[0])
+    v_one = _verdict_line(open(os.path.join(one_dir, "run_clairs_to_tpu_torch.log")).read())
+    log(f"[two-process] Verdict, two processes: {v_two}")
+    log(f"[two-process] Verdict, one process:   {v_one}")
+    # rank 0 appends rank 1's allele counts after its own, so the loci reach
+    # the segmentation out of genome order; the estimate may move in its
+    # last digit (the JAX package's gather does the same)
+    fit = re.compile(r"purity=([\d.]+) ploidy=([\d.]+) tagged=(\d+)")
+    two, single = fit.search(v_two), fit.search(v_one)
+    if not (two and single) or abs(float(two[1]) - float(single[1])) > 0.02 \
+            or two.groups()[1:] != single.groups()[1:]:
+        raise AssertionError(f"two-process: Verdict differs: {v_two!r} vs {v_one!r}")
+    return dict(launches=sum(r["launches"] for r in ranks), wall_s=wall2, ranks=ranks,
+                one_process_wall_s=wall, verdict_same_line=v_two == v_one)
+
+
+def phase_replicas(dev):
+    """Phase 9: two replicas on the one card against one device, flagship
+    weights, 8192 rows: each replica takes 4096 rows on its own copy of the
+    networks, with its own pinned buffers and event."""
+    from clairs_to_tpu_torch.infer.engine import InferenceEngine
+    from clairs_to_tpu_torch.ops import gru
+
+    x_aff, x_neg, cov = _engine_batch()
+    out, total = {}, 0
+    for mode in ("snv", "indel"):
+        aff, neg, lik, kw = _flagship(mode, dev)
+        one = InferenceEngine(aff, neg, lik, device=dev, **kw)
+        two = InferenceEngine(aff, neg, lik, devices=["cuda:0", "cuda:0"], **kw)
+        want = one.run_batch(x_aff, x_neg, cov, cov)
+        gru.gru_direction.launches = 0
+        got = two.run_batch(x_aff, x_neg, cov, cov)
+        launched = gru.gru_direction.launches
+        err = max(np.abs(got.p_aff - want.p_aff).max(), np.abs(got.p_neg - want.p_neg).max())
+        ms = {name: 1e3 * _wall(lambda e=e: e.run_batch(x_aff, x_neg, cov, cov), 3)
+              for name, e in (("one_device", one), ("two_replicas", two))}
+        log(f"[replicas] {mode}: 8192 rows as 2 x 4096 on cuda:0, GRU launches {launched}, "
+            f"max |p diff| {err:.3e}, run_batch ms one device {ms['one_device']:.2f} "
+            f"two replicas {ms['two_replicas']:.2f}")
+        if launched != 8:
+            raise AssertionError(f"replicas {mode}: expected 8 GRU launches, got {launched}")
+        if err > REPLICA_TOL or not np.isfinite(got.posterior).all() \
+                or got.posterior.shape != want.posterior.shape:
+            raise AssertionError(f"replicas {mode}: two replicas disagree with one device "
+                                 f"({err:.3e})")
+        if not np.array_equal(got.forward_acgt, want.forward_acgt):
+            raise AssertionError(f"replicas {mode}: strand counts differ")
+        total += launched
+        out[mode] = dict(max_abs_err=float(err), **{f"{k}_ms": v for k, v in ms.items()})
+    out["launches"] = total
+    return out
+
+
 def phase_end_to_end(card, genome_len, ilmn_len):
-    """Phases 4 to 6 on one simulated ONT genome and one Illumina genome."""
+    """Phases 4 to 8 on one simulated ONT genome and one Illumina genome."""
     from clairs_to_tpu_torch import realign
     from clairs_to_tpu_torch.bamio import native
     from clairs_to_tpu_torch.bamio.simulate import make_dataset
@@ -504,13 +759,17 @@ def phase_end_to_end(card, genome_len, ilmn_len):
     ds = make_dataset(os.path.join(WORK, "data"), seed=7, genome_len=genome_len,
                       coverage=COVERAGE, n_snv=max(20, genome_len // 20_000),
                       n_indel=max(10, genome_len // 40_000), n_germline=genome_len // 300,
-                      somatic_hap_aware=True, **ONT_PROFILE)
+                      somatic_hap_aware=True, **read_model("ont"))
     log(f"[e2e] simulated {genome_len} bp ONT at {COVERAGE}x in {time.time() - t0:.1f} s")
     region = f"{ds['ctg']}:1-{min(genome_len, 200_000)}"
-    return dict(genome_len=genome_len,
-                opt_out=phase_opt_out(card, ds, region),
-                default_ont=phase_default_ont(card, ds, genome_len, region),
-                ilmn=phase_ilmn(card, ilmn_len))
+    res = dict(genome_len=genome_len,
+               opt_out=phase_opt_out(card, ds, region),
+               default_ont=phase_default_ont(card, ds, genome_len, region),
+               ilmn=phase_ilmn(card, ilmn_len))
+    res["serve"] = phase_serve(card, ds, region, res["default_ont"])
+    res["two_process"] = phase_two_process(card, ds, res["default_ont"]["pon"],
+                                           res["default_ont"]["candidates"])
+    return res
 
 
 def main(argv=None):
@@ -540,6 +799,7 @@ def main(argv=None):
     max_err, timings = phase_kernel(gru, dev, prev)
     engine = phase_engine(dev)
     e2e = phase_end_to_end(card, GENOME_LEN, ILMN_GENOME_LEN)
+    e2e["replicas"] = phase_replicas(dev)
     log(f"[done] {time.time() - t_start:.1f} s; " + json.dumps(dict(engine=engine, e2e=e2e)))
 
     t = timings[192]
@@ -547,7 +807,8 @@ def main(argv=None):
         name="gru_direction", route="cuda", source="clairs_to_tpu_torch/csrc/gru.cu",
         replaces="clairs_to_tpu/ops/gru_pallas.py:61",
         launches=e2e["default_ont"]["launches"],
-        launches_by_path={k: e2e[k]["launches"] for k in ("opt_out", "default_ont", "ilmn")},
+        launches_by_path={k: e2e[k]["launches"] for k in (
+            "opt_out", "default_ont", "ilmn", "serve", "two_process", "replicas")},
         max_abs_err=max_err, ms=t["kernel_ms"], plain_ms=t["plain_ms"],
         bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],
         bound_fp32_ms=t["bound_fp32_ms"], shape=f"T={T} B=8192 H=192",
@@ -555,6 +816,8 @@ def main(argv=None):
     )]
     if "prev_ms" in t:
         kernels[0]["prev_ms"] = t["prev_ms"]
+    if min(kernels[0]["launches_by_path"].values()) <= 0:
+        raise AssertionError(f"a path never launched the kernel: {kernels[0]['launches_by_path']}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

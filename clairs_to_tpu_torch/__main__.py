@@ -1,8 +1,10 @@
 """Submodule dispatcher: ``python -m clairs_to_tpu_torch <submodule> [options]``.
 
-Counterpart of clairs_to_tpu/__main__.py.  The port has one submodule,
-``run``, which does on one GPU everything the original ``run`` does on one
-device; serve, train, compare_vcf and the rest are still to port.
+Counterpart of clairs_to_tpu/__main__.py, with the same argument surfaces:
+``run``, ``serve`` and the host stages that can be called on their own
+(``sort_vcf``, ``nonsomatic_tagging``, ``postprocess_vcf``,
+``gen_contaminated_bam``, ``compare_vcf``).  ``train`` and
+``convert_checkpoint`` are still to port.
 """
 
 import sys
@@ -21,6 +23,146 @@ def register(name):
 def _run(argv):
     from clairs_to_tpu_torch.cli.run import main
     return main(argv)
+
+
+@register("serve")
+def _serve(argv):
+    """Resident warm-engine calling server (clairs_to_tpu_torch/serve.py)."""
+    from clairs_to_tpu_torch.serve import main as serve_main
+
+    return serve_main(argv)
+
+
+@register("compare_vcf")
+def _compare_vcf(argv):
+    import argparse
+
+    from clairs_to_tpu_torch.bench.compare import compare_vcf, format_report
+
+    p = argparse.ArgumentParser(prog="compare_vcf")
+    p.add_argument("--truth_vcf_fn", required=True)
+    p.add_argument("--input_vcf_fn", required=True)
+    p.add_argument("--ctg_name", default=None)
+    p.add_argument("--bed_fn", default=None)
+    p.add_argument("--input_filter_tag", default="PASS")
+    p.add_argument("--truth_filter_tag", default=None)
+    p.add_argument("--skip_genotyping", default="True")
+    p.add_argument("--benchmark_indel", action="store_true")
+    p.add_argument("--ctg_start", type=int, default=None)
+    p.add_argument("--ctg_end", type=int, default=None)
+    a = p.parse_args(argv)
+    res = compare_vcf(
+        a.truth_vcf_fn, a.input_vcf_fn, ctg_name=a.ctg_name, bed_fn=a.bed_fn,
+        input_filter_tag=a.input_filter_tag, truth_filter_tag=a.truth_filter_tag,
+        skip_genotyping=a.skip_genotyping.lower() in ("1", "true", "yes"),
+        benchmark_indel=a.benchmark_indel, ctg_start=a.ctg_start, ctg_end=a.ctg_end,
+    )
+    print(format_report(res))
+    return 0
+
+
+@register("sort_vcf")
+def _sort_vcf(argv):
+    import argparse
+    import glob
+    import os
+
+    from clairs_to_tpu_torch.vcf.sort import merge_vcf_files
+
+    p = argparse.ArgumentParser(prog="sort_vcf")
+    p.add_argument("--input_dir", required=True)
+    p.add_argument("--vcf_fn_prefix", default="")
+    p.add_argument("--vcf_fn_suffix", default=".vcf")
+    p.add_argument("--output_fn", required=True)
+    a = p.parse_args(argv)
+    inputs = sorted(
+        glob.glob(os.path.join(a.input_dir, f"{a.vcf_fn_prefix}*{a.vcf_fn_suffix}"))
+    )
+    n = merge_vcf_files(inputs, a.output_fn)
+    print(f"[INFO] {n} rows merged into {a.output_fn}")
+    return 0
+
+
+@register("nonsomatic_tagging")
+def _nonsomatic(argv):
+    import argparse
+
+    from clairs_to_tpu_torch.postcall.nonsomatic import tag_nonsomatic_file
+
+    p = argparse.ArgumentParser(prog="nonsomatic_tagging")
+    p.add_argument("--pileup_vcf_fn", required=True)
+    p.add_argument("--output_vcf_fn", required=True)
+    p.add_argument("--panel_of_normals", required=True)
+    p.add_argument("--panel_of_normals_require_allele_matching", default=None)
+    p.add_argument("--skip_pon_md5", action="store_true")
+    a = p.parse_args(argv)
+    pons = a.panel_of_normals.split(",")
+    require = (
+        [x.lower() in ("1", "true") for x in a.panel_of_normals_require_allele_matching.split(",")]
+        if a.panel_of_normals_require_allele_matching
+        else None
+    )
+    summary = tag_nonsomatic_file(
+        a.pileup_vcf_fn, a.output_vcf_fn, pons,
+        require_allele_matching=require, skip_md5=a.skip_pon_md5,
+    )
+    print(f"[INFO] NonSomaticTaggingSummary: total={summary['total']} "
+          f"tagged={summary['tagged']} per_pon={summary['per_pon']}")
+    return 0
+
+
+@register("postprocess_vcf")
+def _postprocess(argv):
+    import argparse
+
+    from clairs_to_tpu_torch.postcall.postprocess import postprocess_vcf
+
+    p = argparse.ArgumentParser(prog="postprocess_vcf")
+    p.add_argument("--pileup_vcf_fn", required=True)
+    p.add_argument("--output_fn", required=True)
+    p.add_argument("--platform", required=True)
+    p.add_argument("--ref_fn", default=None)
+    p.add_argument("--sample_name", default="SAMPLE")
+    p.add_argument("--qual", type=float, default=None)
+    p.add_argument("--af", type=float, default=None)
+    p.add_argument("--is_indel", action="store_true")
+    p.add_argument("--compress_vcf", action="store_true")
+    a = p.parse_args(argv)
+    postprocess_vcf(
+        a.pileup_vcf_fn, a.output_fn, a.platform, ref_fn=a.ref_fn,
+        sample_name=a.sample_name, qual=a.qual, af=a.af, is_indel=a.is_indel,
+        compress_vcf=a.compress_vcf,
+    )
+    return 0
+
+
+@register("gen_contaminated_bam")
+def _gen_contaminated(argv):
+    import argparse
+
+    from clairs_to_tpu_torch.bamio.simulate import make_dataset
+
+    p = argparse.ArgumentParser(
+        prog="gen_contaminated_bam",
+        description="Simulate a tumor BAM at a target purity "
+                    "(role of src/gen_contaminated_bam.py)",
+    )
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--purity", type=float, default=1.0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--genome_len", type=int, default=100_000)
+    p.add_argument("--coverage", type=int, default=60)
+    p.add_argument("--n_snv", type=int, default=20)
+    p.add_argument("--n_indel", type=int, default=0)
+    p.add_argument("--n_germline", type=int, default=0)
+    a = p.parse_args(argv)
+    ds = make_dataset(
+        a.output_dir, seed=a.seed, genome_len=a.genome_len, coverage=a.coverage,
+        n_snv=a.n_snv, n_indel=a.n_indel, n_germline=a.n_germline,
+        tumor_purity=a.purity,
+    )
+    print(f"[INFO] dataset at purity {a.purity}: {ds['bam']}")
+    return 0
 
 
 def main():

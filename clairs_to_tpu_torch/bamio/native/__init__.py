@@ -9,6 +9,7 @@ path (bamio/bam.py + PileupEngine.add_read) keeps everything working.
 import ctypes
 import os
 import subprocess
+import threading
 
 import numpy as np
 
@@ -18,6 +19,7 @@ _SRC = os.path.join(_DIR, "pileup_native.cpp")
 
 _lib = None
 _load_error = None
+_lock = threading.Lock()
 
 # extended span margin for the filter-view dense stats: verdict windows
 # reach at most FLANKING (100) bp past the chunk region edge
@@ -25,14 +27,25 @@ FILT_MARGIN = 128
 
 
 def _build():
+    # to a name of this process's own, then renamed: two ranks of one run may
+    # build at the same time, and neither may load a half-written library
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     cmd = [
         "g++", "-O3", "-std=c++17", "-shared", "-fPIC",
-        "-o", _SO, _SRC, "-lz",
+        "-o", tmp, _SRC, "-lz",
     ]
     subprocess.run(cmd, check=True, capture_output=True)
+    os.replace(tmp, _SO)
 
 
 def get_lib():
+    # decode workers reach this at the same time: one builds and loads, the
+    # others wait for it
+    with _lock:
+        return _get_lib_locked()
+
+
+def _get_lib_locked():
     global _lib, _load_error
     if _lib is not None or _load_error is not None:
         return _lib

@@ -7,8 +7,11 @@ posterior -> VCF rows), the per-chunk filters (phasing and the haplotype
 filter for long reads, realignment and the postfilter for Illumina), the
 merge, PoN tagging, the QUAL postprocess, genotyping/hybrid add-back,
 Verdict, and the bgzip + tabix copies of both outputs.  The stages after the
-forward are numpy and C++ on the host, as in the original.  A run that asks
-for several GPUs or several hosts exits with an error: those are not ported.
+forward are numpy and C++ on the host, as in the original.  With several
+GPUs the engines hold one replica per device (``--device_count``); with
+``--coordinator_address`` the run is one rank of several processes that
+split the chunks and meet at a barrier, and rank 0 writes the output
+(parallel/scheduler.py).
 """
 
 import argparse
@@ -124,17 +127,18 @@ def build_parser():
                      help="Device of the dual-network forward (default: cuda; "
                           "the run fails when no GPU is present).")
     adv.add_argument("--device_count", type=int, default=None,
-                     help="Number of GPUs. Only 1 is supported: a larger "
-                          "value exits with an error.")
+                     help="Engine replicas, one per GPU (default: every "
+                          "visible GPU, cut to those present; with --device "
+                          "cpu: replicas on the CPU, default 1).")
     adv.add_argument("--coordinator_address", default=None,
-                     help="Multi-host runs (not supported: the run exits with "
-                          "an error).")
+                     help="host:port of rank 0 for a multi-process run "
+                          "(torch.distributed, gloo); the ranks share "
+                          "--output_dir.")
     adv.add_argument("--num_processes", type=int, default=None,
-                     help="Multi-host runs (not supported: the run exits with "
-                          "an error).")
+                     help="Number of processes of a multi-process run.")
     adv.add_argument("--process_id", type=int, default=None,
-                     help="Multi-host runs (not supported: the run exits with "
-                          "an error).")
+                     help="This process's rank, 0 .. num_processes - 1; rank "
+                          "0 merges and writes the output.")
     adv.add_argument(
         "--matmul_precision", default="highest", choices=["highest", "default"],
         help="'highest': full fp32 with TF32 off for matmuls and cuDNN "
@@ -218,9 +222,25 @@ def default_model_dir(platform, warn=True):
     return None
 
 
-def load_engines(args):
-    """Load trained checkpoints + likelihood matrices into engines on
-    ``args.device``."""
+def run_devices(args):
+    """The devices of this run's engines, from --device and --device_count."""
+    import torch
+
+    from clairs_to_tpu_torch.infer.engine import local_devices
+
+    devices = local_devices(args.device, args.device_count)
+    if args.device_count and args.device_count > len(devices):
+        print(f"[INFO] --device_count {args.device_count}: {torch.cuda.device_count()} "
+              f"GPU(s) visible, using {len(devices)}")
+    if len(devices) > 1:
+        print(f"[INFO] Data-parallel engine replicas on {len(devices)} "
+              f"{devices[0].type} devices")
+    return devices
+
+
+def load_engines(args, devices=None):
+    """Load trained checkpoints + likelihood matrices into engines with one
+    replica on each of ``devices`` (default: ``args.device`` alone)."""
     import torch
 
     from clairs_to_tpu_torch.infer.engine import InferenceEngine, resolve_device
@@ -231,7 +251,8 @@ def load_engines(args):
         uniform_likelihood_data,
     )
 
-    device = resolve_device(args.device)
+    devices = list(devices) if devices else [resolve_device(args.device)]
+    device = devices[0]
     # default the model dir whenever it is unset; resolve() fills only the
     # per-network paths not given explicitly (run_clairs_to:612-819)
     if not args.model_dir:
@@ -286,7 +307,7 @@ def load_engines(args):
         return InferenceEngine(
             aff, neg, lik, mode=mode, device_batch=device_batch,
             cvt_config=cvt_cfg, bigru_config=gru_cfg,
-            matmul_precision=args.matmul_precision, device=device,
+            matmul_precision=args.matmul_precision, devices=devices,
         )
 
     snv_engine = build("snv", 0)
@@ -434,16 +455,6 @@ def _filter_stages(args):
         else fam == "ilmn"
     )
     return apply_hap_filter, apply_postfilter
-
-
-def unported_stages(args):
-    """What this run asks for that the port does not have."""
-    needs = {
-        "several GPUs (--device_count)": (args.device_count or 1) > 1,
-        "multi-host runs": (args.coordinator_address is not None
-                            or (args.num_processes or 1) > 1),
-    }
-    return [name for name, needed in needs.items() if needed]
 
 
 def _apply_chunk_filters(pipe, chunk, res, apply_hap_filter, apply_postfilter, args):
@@ -708,6 +719,8 @@ def _run_verdict_stage(args, verdict_acc, snv_vcf_path, gc_lookup, rt_lookup):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    from clairs_to_tpu_torch.parallel.scheduler import shutdown_distributed
+
     try:
         return _main_impl(args)
     except MemoryError:
@@ -716,6 +729,8 @@ def main(argv=None):
             "--device_batch, or per-contig runs (-c).\n"
         )
         return 1
+    finally:
+        shutdown_distributed()
 
 
 def _main_impl(args, engines=None):
@@ -746,6 +761,12 @@ def _pipeline_body(args, metrics, t0, tee, engines=None):
     from clairs_to_tpu_torch.genome.chunks import plan_chunks
     from clairs_to_tpu_torch.genome.fasta import FastaFile
     from clairs_to_tpu_torch.infer.pipeline import CallingPipeline, PipelineOptions
+    from clairs_to_tpu_torch.ops.gru import gru_direction
+    from clairs_to_tpu_torch.parallel.scheduler import (
+        all_hosts_barrier,
+        init_distributed,
+        owned_chunks,
+    )
     from clairs_to_tpu_torch.postcall.postprocess import postprocess_vcf
     from clairs_to_tpu_torch.utils.metrics import device_trace
     from clairs_to_tpu_torch.vcf.sort import merge_vcf_files
@@ -797,12 +818,22 @@ def _pipeline_body(args, metrics, t0, tee, engines=None):
             print(f"  {c.ctg_name}:{c.ctg_start + 1}-{c.ctg_end}")
         return 0
 
-    missing = unported_stages(args)
-    if missing:
-        sys.exit("[ERROR] This run needs what clairs_to_tpu_torch does not "
-                 "have yet: " + "; ".join(missing) + ". Use clairs_to_tpu for them.")
-
     default_qual(args)
+
+    # Processes own disjoint chunk subsets (the reference's CHUNK_LIST static
+    # split, run_clairs_to:553-561); each runs its chunks on its own GPUs,
+    # so nothing crosses processes but the end barrier.
+    try:
+        process_count, process_index = init_distributed(
+            args.coordinator_address, args.num_processes, args.process_id)
+    except ValueError as e:
+        sys.exit(f"[ERROR] {e}")
+    all_chunks = chunks
+    if process_count > 1:
+        chunks = owned_chunks(all_chunks, process_index, process_count)
+        print(f"[INFO] Host {process_index}/{process_count}: owns "
+              f"{len(chunks)}/{len(all_chunks)} chunks")
+    launches_before = gru_direction.launches
     call_indels = not _str2bool(args.disable_indel_calling)
 
     genotyping_sites = None
@@ -891,7 +922,7 @@ def _pipeline_body(args, metrics, t0, tee, engines=None):
     # the engines load while the first chunks decode
     if engines is None:
         with metrics.stage("load_engines"):
-            engines = load_engines(args)
+            engines = load_engines(args, devices=run_devices(args))
         with metrics.stage("engine_warmup"):
             # the first forward builds the GRU kernel and cuDNN's plans
             for eng in engines:
@@ -958,6 +989,54 @@ def _pipeline_body(args, metrics, t0, tee, engines=None):
                 _finalize_chunk(*inflight.popleft())
         while inflight:
             _finalize_chunk(*inflight.popleft())
+    # launches of the GRU kernel by this run: above 0 whenever a batch ran on a GPU
+    metrics.count("gru_launches", gru_direction.launches - launches_before)
+
+    # --- multi-process join: every rank finished its owned chunks ---------
+    if process_count > 1:
+        # spill this rank's Verdict allele counts for rank 0 to gather
+        if not args.disable_verdict and verdict_acc:
+            np.savez(
+                os.path.join(tmp_dir, f"verdict_counts_{process_index}.npz"),
+                **{
+                    f"{ctg}|{k}": np.concatenate(e[k])
+                    for ctg, e in verdict_acc.items()
+                    for k in ("pos", "refc", "altc")
+                    if e["pos"]
+                },
+            )
+        all_hosts_barrier("chunks_done")
+        if process_index != 0:
+            print(f"[INFO] Host {process_index}: chunk work done "
+                  f"({n_cand} candidates); host 0 merges the output.")
+            metrics.report(out=tee)
+            return 0
+        # rank 0 gathers every rank's per-chunk shards (shared filesystem,
+        # deterministic path naming)
+        snv_paths = [
+            os.path.join(vcf_out, f"p_snv_{c.ctg_name}_{c.chunk_id}.vcf")
+            for c in all_chunks
+        ]
+        indel_paths = [
+            os.path.join(vcf_out, f"p_indel_{c.ctg_name}_{c.chunk_id}.vcf")
+            for c in all_chunks
+        ] if call_indels else []
+        missing = [p for p in snv_paths + indel_paths if not os.path.exists(p)]
+        if missing:
+            sys.exit(f"[ERROR] {len(missing)} chunk shards missing after the "
+                     f"host barrier (is --output_dir shared?): {missing[:3]}")
+        if not args.disable_verdict:
+            for pi in range(1, process_count):
+                spill = os.path.join(tmp_dir, f"verdict_counts_{pi}.npz")
+                if not os.path.exists(spill):
+                    continue
+                with np.load(spill) as z:
+                    for key in z.files:
+                        ctg, k = key.rsplit("|", 1)
+                        entry = verdict_acc.setdefault(
+                            ctg, {"pos": [], "refc": [], "altc": []}
+                        )
+                        entry[k].append(z[key])
 
     # --- merge + postcall (sort_vcf -> PoN -> postprocess, run_clairs_to
     # STEPs 3/5) ----------------------------------------------------------

@@ -1,4 +1,4 @@
-# Port copy of clairs_to_tpu/genome/fasta.py.
+# Port copy of clairs_to_tpu/genome/fasta.py; fetch reads positionally, so threads may share a FastaFile.
 """FASTA access with .fai indexing.
 
 Replaces the reference's ``samtools faidx`` subprocess
@@ -106,9 +106,17 @@ class FastaFile:
         # bytes to read: spans (end-start) bases plus interleaved newline bytes
         last_line = (end - 1) // entry.line_bases
         span = (end - start) + (last_line - first_line) * (entry.line_width - entry.line_bases)
-        self._fp.seek(file_start)
-        data = self._fp.read(span)
-        return data.replace(b"\n", b"").replace(b"\r", b"").decode()
+        # positional reads: the decode workers of a run fetch through one
+        # FastaFile at the same time, and a seek followed by a read on the
+        # shared handle would let one thread read from another's offset
+        parts, got = [], 0
+        while got < span:
+            part = os.pread(self._fp.fileno(), span - got, file_start + got)
+            if not part:
+                break
+            parts.append(part)
+            got += len(part)
+        return b"".join(parts).replace(b"\n", b"").replace(b"\r", b"").decode()
 
     def fetch_1based(self, name, start_1, end_1):
         """Fetch [start_1, end_1] 1-based inclusive (samtools faidx region)."""

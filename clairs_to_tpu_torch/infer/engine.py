@@ -13,10 +13,17 @@ the host.  The wire format is the JAX engine's: one packed int16 tensor
 (AFF counts plus a coverage row) and an int16 NEG-minus-AFF delta, added
 in float32 on the device before the rescale; a float32 path remains for
 non-integral inputs.  On CUDA the host buffers are pinned, the copies are
-``non_blocking`` and each slice records one CUDA event that ``result()``
-waits on; on the CPU everything runs synchronously.
+``non_blocking`` and each part of a slice records one CUDA event that
+``result()`` waits on; on the CPU everything runs synchronously.
+
+Several devices (``devices=[...]``, the counterpart of the JAX engine's 1-D
+mesh): one replica of the two networks per device.  Every padded slice is
+split evenly along the batch axis, one part per replica; all parts are
+dispatched before any is consumed, and the parts are concatenated in order.
 """
 
+import contextlib
+import copy
 from dataclasses import dataclass
 from typing import Optional
 
@@ -48,6 +55,33 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "(--device cpu) to run on the CPU")
     return device
+
+
+def local_devices(device="cuda", device_count=None):
+    """The devices a run will use: ``device_count`` GPUs of those visible
+    (default: all of them; never more than there are), or ``device_count``
+    CPU replicas (default: one)."""
+    first = resolve_device(device)
+    if first.type != "cuda":
+        return [first] * max(1, device_count or 1)
+    visible = torch.cuda.device_count()
+    n = max(1, min(device_count or visible, visible))
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def set_matmul_precision(precision):
+    """"highest": TF32 off for matmuls and cuDNN convolutions; anything else
+    allows it.  The two switches are process-wide, so every engine sets them
+    from its own precision where it dispatches a forward."""
+    tf32 = precision != "highest"
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _on_device(device):
+    """Makes a CUDA device the current one (streams, events and the GRU
+    kernel follow it); nothing to do for the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
 def _rescale(x, coverage, min_rescale_cov):
@@ -98,6 +132,9 @@ class InferenceEngine:
     the GRU recurrence through the CUDA kernel on CUDA (the plain loop on
     the CPU); False forces the plain loop.  ``matmul_precision="highest"``
     turns TF32 off for matmuls and cuDNN convolutions (parity mode).
+    ``devices``: one replica per entry (``device=`` is the short form for
+    one); the same device may be named several times.  ``device_batch`` is
+    rounded up to a multiple of the replica count.
     """
 
     def __init__(
@@ -113,40 +150,49 @@ class InferenceEngine:
         use_kernel: Optional[bool] = None,
         matmul_precision: str = "highest",
         device=None,
+        devices=None,
     ):
         assert mode in ("snv", "indel")
         self.mode = mode
-        self.device = resolve_device(device)
+        self.devices = ([resolve_device(d) for d in devices] if devices
+                        else [resolve_device(device)])
+        self.device = self.devices[0]
+        n_rep = len(self.devices)
         self.cvt_config = cvt_config or (
             cvt.SNV_CVT_CONFIG if mode == "snv" else cvt.INDEL_CVT_CONFIG)
         self.bigru_config = bigru_config or (
             bigru.SNV_BIGRU_CONFIG if mode == "snv" else bigru.INDEL_BIGRU_CONFIG)
         self.n_alleles = len(self.cvt_config.alleles)
-        self.device_batch = device_batch
+        # the padded batch axis must split evenly across the replicas
+        self.device_batch = -(-device_batch // n_rep) * n_rep
         self.min_rescale_cov = min_rescale_cov
         self.use_kernel = use_kernel
         self.matmul_precision = matmul_precision
         self.likelihood = likelihood
-        if self.device.type == "cuda":
-            tf32 = matmul_precision != "highest"
-            torch.backends.cuda.matmul.allow_tf32 = tf32
-            torch.backends.cudnn.allow_tf32 = tf32
-        self.aff_model = _as_model(aff_params, "cvt", self.cvt_config).to(self.device).eval()
-        self.neg_model = _as_model(neg_params, "bigru", self.bigru_config).to(self.device).eval()
+        self._on_cuda = any(d.type == "cuda" for d in self.devices)
+        aff = _as_model(aff_params, "cvt", self.cvt_config).eval()
+        neg = _as_model(neg_params, "bigru", self.bigru_config).eval()
+        # the first replica is the model as given, moved; the others are copies
+        self.aff_models = [aff.to(d) if i == 0 else copy.deepcopy(aff).to(d)
+                           for i, d in enumerate(self.devices)]
+        self.neg_models = [neg.to(d) if i == 0 else copy.deepcopy(neg).to(d)
+                           for i, d in enumerate(self.devices)]
+        self.aff_model, self.neg_model = self.aff_models[0], self.neg_models[0]
         self._lik_mat = torch.as_tensor(likelihood.matrices, dtype=torch.float32,
                                         device=self.device)
         self._aff_edges = torch.as_tensor(likelihood.aff_edges, dtype=torch.float32,
                                           device=self.device)
         self._neg_edges = torch.as_tensor(likelihood.neg_edges, dtype=torch.float32,
                                           device=self.device)
-        self._zero_delta = None   # device-resident int16 zeros, lazy
+        self._zero_delta = [None] * n_rep   # device-resident int16 zeros, lazy
 
     # ---- device programs ------------------------------------------------
-    def _net_probs(self, x_aff, x_neg, cov_aff, cov_neg):
+    def _net_probs(self, x_aff, x_neg, cov_aff, cov_neg, replica=0):
         x_aff = _rescale(x_aff.float(), cov_aff, self.min_rescale_cov)
         x_neg = _rescale(x_neg.float(), cov_neg, self.min_rescale_cov)
-        probs_aff = torch.softmax(self.aff_model(x_aff), dim=-1)
-        probs_neg = torch.softmax(self.neg_model(x_neg, use_kernel=self.use_kernel), dim=-1)
+        probs_aff = torch.softmax(self.aff_models[replica](x_aff), dim=-1)
+        probs_neg = torch.softmax(
+            self.neg_models[replica](x_neg, use_kernel=self.use_kernel), dim=-1)
         return probs_aff, probs_neg
 
     @staticmethod
@@ -155,11 +201,11 @@ class InferenceEngine:
         return torch.stack((probs_aff[..., 1], probs_neg[..., 1]), dim=1)
 
     @torch.inference_mode()
-    def _forward_full(self, x_aff, x_neg, cov_aff, cov_neg):
-        return self._stack_p1(*self._net_probs(x_aff, x_neg, cov_aff, cov_neg))
+    def _forward_full(self, x_aff, x_neg, cov_aff, cov_neg, replica=0):
+        return self._stack_p1(*self._net_probs(x_aff, x_neg, cov_aff, cov_neg, replica))
 
     @torch.inference_mode()
-    def _forward_delta(self, packed, x_delta):
+    def _forward_delta(self, packed, x_delta, replica=0):
         """``packed`` (B,34,34) int16: rows 0-32 the AFF counts, row 33
         columns 0/1 the AFF/NEG coverages; ``x_delta`` (B,33,34) int16 =
         NEG - AFF.  The float32 add happens before the rescale, so the
@@ -168,7 +214,7 @@ class InferenceEngine:
         cov_aff = packed[:, 33, 0].float()
         cov_neg = packed[:, 33, 1].float()
         x_neg = x_aff + x_delta.float()
-        return self._stack_p1(*self._net_probs(x_aff, x_neg, cov_aff, cov_neg))
+        return self._stack_p1(*self._net_probs(x_aff, x_neg, cov_aff, cov_neg, replica))
 
     @torch.inference_mode()
     def _forward_fused(self, x_aff, x_neg, cov_aff, cov_neg):
@@ -187,12 +233,18 @@ class InferenceEngine:
         pad_width = [(0, self.device_batch - n)] + [(0, 0)] * (arr.ndim - 1)
         return np.pad(arr, pad_width, constant_values=value)
 
-    def _put(self, arr):
+    def _put(self, arr, replica=0):
         """Host numpy -> device tensor (pinned, non-blocking on CUDA)."""
+        device = self.devices[replica]
         t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type != "cuda":
+        if device.type != "cuda":
             return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        return t.pin_memory().to(device, non_blocking=True)
+
+    def _part(self, arr, replica):
+        """Replica ``replica``'s rows of a padded slice."""
+        rows = self.device_batch // len(self.devices)
+        return arr[replica * rows:(replica + 1) * rows]
 
     def _intify(self, arr):
         """int16 wire encoding of a count tensor, or None when unsafe."""
@@ -209,12 +261,13 @@ class InferenceEngine:
             return None
         return None
 
-    def _zero_delta_dev(self):
+    def _zero_delta_dev(self, replica=0):
         """Device-resident int16 zero delta for identical AFF/NEG views."""
-        if self._zero_delta is None:
-            self._zero_delta = torch.zeros((self.device_batch, 33, 34), dtype=torch.int16,
-                                           device=self.device)
-        return self._zero_delta
+        if self._zero_delta[replica] is None:
+            self._zero_delta[replica] = torch.zeros(
+                (self.device_batch // len(self.devices), 33, 34), dtype=torch.int16,
+                device=self.devices[replica])
+        return self._zero_delta[replica]
 
     def run_batch(self, x_aff, x_neg, cov_aff, cov_neg) -> BatchResult:
         """Synchronous convenience wrapper over ``run_batch_async``."""
@@ -254,34 +307,51 @@ class InferenceEngine:
             packed[:, :33, :] = xa16
             packed[:, 33, 0] = ca16
             packed[:, 33, 1] = cn16
+        if self._on_cuda:
+            set_matmul_precision(self.matmul_precision)
         handles = []
         for i in range(0, n, self.device_batch):
             sl = slice(i, i + self.device_batch)
             ni = min(self.device_batch, n - i)
             if use_int:
-                pk = self._put(self._pad(packed[sl]))
-                xd = (self._zero_delta_dev() if d16 is None
-                      else self._put(self._pad(d16[sl])))
-                p1 = self._forward_delta(pk, xd)
+                padded = (self._pad(packed[sl]),
+                          None if d16 is None else self._pad(d16[sl]))
             else:
-                ca = self._put(self._pad(np.asarray(cov_aff[sl], np.float32), value=1))
-                cn = ca if cov_neg is cov_aff else self._put(
-                    self._pad(np.asarray(cov_neg[sl], np.float32), value=1))
-                xa = self._put(self._pad(np.asarray(x_aff[sl], np.float32)))
-                xn = xa if identity else self._put(
-                    self._pad(np.asarray(x_neg[sl], np.float32)))
-                p1 = self._forward_full(xa, xn, ca, cn)
-            event = None
-            if self.device.type == "cuda":
-                host = torch.empty(p1.shape, dtype=p1.dtype, pin_memory=True)
-                host.copy_(p1, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record()
-                p1 = host
-            handles.append((ni, sl, p1, event))
+                padded = (self._pad(np.asarray(x_aff[sl], np.float32)),
+                          None if identity else self._pad(np.asarray(x_neg[sl], np.float32)),
+                          self._pad(np.asarray(cov_aff[sl], np.float32), value=1),
+                          None if cov_neg is cov_aff
+                          else self._pad(np.asarray(cov_neg[sl], np.float32), value=1))
+            # every replica's part is dispatched before any is consumed; each
+            # has its own pinned buffer and its own event on its own device
+            parts = []
+            for k, device in enumerate(self.devices):
+                with _on_device(device):
+                    part = [None if a is None else self._put(self._part(a, k), k)
+                            for a in padded]
+                    if use_int:
+                        pk, xd = part
+                        p1 = self._forward_delta(
+                            pk, self._zero_delta_dev(k) if xd is None else xd, k)
+                    else:
+                        xa, xn, ca, cn = part
+                        p1 = self._forward_full(xa, xa if xn is None else xn,
+                                                ca, ca if cn is None else cn, k)
+                    event = None
+                    if device.type == "cuda":
+                        host = torch.empty(p1.shape, dtype=p1.dtype, pin_memory=True)
+                        host.copy_(p1, non_blocking=True)
+                        event = torch.cuda.Event()
+                        event.record()
+                        p1 = host
+                parts.append((p1, event))
+            handles.append((ni, sl, parts))
         return PendingBatch(self, handles, x_aff)
 
-    def _consume(self, n, x_aff_slice, p1) -> BatchResult:
+    def _consume(self, n, x_aff_slice, parts) -> BatchResult:
+        """``parts``: the replicas' (B/n, 2, A) class-1 probabilities on the
+        host, in order."""
+        p1 = parts[0] if len(parts) == 1 else torch.cat(parts)
         # the reference round-trips probabilities through '%.8f' text between
         # predict and call_variants; match that rounding so the float64
         # posterior sees identical inputs
@@ -296,7 +366,9 @@ class InferenceEngine:
 
     def run_batch_fused(self, x_aff, x_neg, cov_aff, cov_neg):
         """Posterior, argmax and QUAL on the device; returns device tensors
-        for the padded batch."""
+        for the padded batch.  Runs on the first replica."""
+        if self._on_cuda:
+            set_matmul_precision(self.matmul_precision)
         xa = self._put(self._pad(np.asarray(x_aff, np.float32)))
         xn = self._put(self._pad(np.asarray(x_neg, np.float32)))
         ca = self._put(self._pad(np.asarray(cov_aff, np.float32), value=1))
@@ -317,10 +389,12 @@ class PendingBatch:
         if self._result is not None:
             return self._result
         parts = []
-        for (ni, sl, p1, event) in self._handles:
-            if event is not None:
-                event.synchronize()
-            parts.append(self._engine._consume(ni, self._x_aff[sl], p1))
+        for (ni, sl, slice_parts) in self._handles:
+            for _p1, event in slice_parts:
+                if event is not None:
+                    event.synchronize()
+            parts.append(self._engine._consume(ni, self._x_aff[sl],
+                                               [p1 for p1, _event in slice_parts]))
         if len(parts) == 1:
             res = parts[0]
         else:

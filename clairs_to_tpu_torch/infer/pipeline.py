@@ -128,10 +128,10 @@ class CallingPipeline:
         self.indel_engine = indel_engine
         self.opt = options or PipelineOptions()
         self.metrics = metrics  # optional RunMetrics for sub-stage timing
-        self._bam = None          # lazy: pure-Python fallback reader
         import threading as _threading
 
-        self._tls = _threading.local()   # per-worker native streams
+        # per decode worker: its native stream, its pure-Python fallback reader
+        self._tls = _threading.local()
         self._streams = []               # every stream opened (for close)
         self._views_memo = {}     # chunk -> views: calling/filters/prefetch share decodes
         self.platform = cfg.platform_family(self.opt.platform)
@@ -235,8 +235,9 @@ class CallingPipeline:
                         max_indel_length=self.opt.max_indel_length,
                     )
         if pe is None:
-            if self._bam is None:
-                self._bam = BamFile(self.bam_path)
+            bam = getattr(self._tls, "bam", None)
+            if bam is None:
+                bam = self._tls.bam = BamFile(self.bam_path)
             pe = PileupEngine(
                 ref_seq,
                 ref_start,
@@ -244,7 +245,7 @@ class CallingPipeline:
                 max_indel_length=self.opt.max_indel_length,
                 handle_overlaps=self.opt.handle_overlaps,
             )
-            for read in self._bam.fetch(
+            for read in bam.fetch(
                 ctg, region_start, region_end, excl_flags=cfg.SAMTOOLS_VIEW_FILTER_FLAG
             ):
                 if self.opt.apply_baq:

@@ -148,17 +148,23 @@ def gru_direction(x_gates, w_hh_t, b_hh, reverse=False):
     if _lib is None:
         build()
     out = torch.empty((T, B, H), dtype=torch.float32, device=x_gates.device)
-    stream = torch.cuda.current_stream(x_gates.device).cuda_stream
     w_packed = pack_w_hh(w_hh_t)
-    err = _lib.gru_direction_f32(x_gates.data_ptr(), w_packed.data_ptr(), b_hh.data_ptr(),
-                                 out.data_ptr(), T, B, H, int(reverse), stream)
+    # the C entry point sets the kernel's attribute and launches on the CUDA
+    # runtime's current device: make that the tensors' device, which with
+    # several engine replicas is not the thread's default
+    with torch.cuda.device(x_gates.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib.gru_direction_f32(x_gates.data_ptr(), w_packed.data_ptr(), b_hh.data_ptr(),
+                                     out.data_ptr(), T, B, H, int(reverse), stream)
     if err != 0:
         raise RuntimeError(f"gru_direction kernel launch failed: cudaError {err}")
-    gru_direction.launches += 1
+    with _count_lock:   # a server launches from several threads
+        gru_direction.launches += 1
     return out
 
 
 gru_direction.launches = 0
+_count_lock = threading.Lock()
 
 
 def bigru_layer(x, p, hidden, use_kernel=True):

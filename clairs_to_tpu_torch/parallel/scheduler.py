@@ -1,14 +1,77 @@
-# Port copy of clairs_to_tpu/parallel/scheduler.py (owned_chunks and PrefetchPipeline only).
-"""Chunk scheduling on the host.
+# Port copy of clairs_to_tpu/parallel/scheduler.py, with torch.distributed in place of jax.distributed.
+"""Multi-GPU / multi-host work scheduling.
+
+* one process, one GPU: the plain chunk loop (cli/run.py);
+* one process, several GPUs: the engine holds one replica of the networks
+  per device and splits every padded batch along the batch axis
+  (infer/engine.py ``devices=``);
+* several processes (hosts, or GPUs of one host chosen with
+  ``CUDA_VISIBLE_DEVICES``): ``torch.distributed`` with the ``gloo`` backend
+  and round-robin chunk ownership by rank.  Each process decodes and calls
+  the chunks it owns; per-chunk VCFs and Verdict counts travel through the
+  shared ``--output_dir`` and rank 0 merges them after a barrier.  No tensor
+  moves between processes, so ``gloo`` serves on GPU machines too.
 
 Decode-ahead for the calling loop: chunk N+1 is decoded on worker threads
-while chunk N's batches run on the device.  ``owned_chunks`` is the static
-round-robin split across hosts; multi-host runs themselves are not part of
-the port yet.
+while chunk N's batches run on the device.
 """
 
+import datetime
 import threading
-from typing import Callable, Iterable, List
+from typing import Callable, Iterable, List, Optional
+
+# a rank that owns the slow chunks of a whole genome may keep the others at
+# the barrier far beyond gloo's default 30 minutes
+BARRIER_TIMEOUT = datetime.timedelta(days=7)
+
+
+def init_distributed(coordinator_address: Optional[str] = None,
+                     num_processes: Optional[int] = None,
+                     process_id: Optional[int] = None):
+    """Join the process group of a multi-process run; returns
+    (process count, this process's rank).
+
+    Without a coordinator address this is a single-process run: (1, 0), and
+    nothing is touched.  The group is made once per process: a later call
+    with the same flags (a server's second request) returns the group that
+    exists.
+    """
+    if coordinator_address is None:
+        return 1, 0
+    import torch.distributed as dist
+
+    if num_processes is None or process_id is None:
+        raise ValueError("--coordinator_address needs --num_processes and --process_id")
+    if not 0 <= process_id < num_processes:
+        raise ValueError(f"--process_id {process_id} outside 0..{num_processes - 1}")
+    if dist.is_initialized():
+        if (dist.get_world_size(), dist.get_rank()) != (num_processes, process_id):
+            raise ValueError(
+                f"this process already is rank {dist.get_rank()} of "
+                f"{dist.get_world_size()}; it cannot become rank {process_id} of "
+                f"{num_processes}")
+        return num_processes, process_id
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{coordinator_address}",
+        world_size=num_processes, rank=process_id, timeout=BARRIER_TIMEOUT)
+    return dist.get_world_size(), dist.get_rank()
+
+
+def all_hosts_barrier(name: str = "chunks_done"):
+    """Barrier across the processes of a run; no-op in a single process."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+        return
+    dist.barrier()
+
+
+def shutdown_distributed():
+    """Leave the process group, if this process joined one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def owned_chunks(chunks: List, process_index: int, process_count: int) -> List:

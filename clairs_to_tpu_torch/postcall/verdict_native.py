@@ -12,6 +12,7 @@ with far less per-site overhead.  SNV sites only; indels and the
 import ctypes
 import os
 import subprocess
+import threading
 
 import numpy as np
 
@@ -21,6 +22,7 @@ _SRC = os.path.join(_DIR, "verdict_native.cpp")
 
 _lib = None
 _load_error = None
+_lock = threading.Lock()
 
 
 def _build():
@@ -37,6 +39,13 @@ def _build():
 
 
 def get_lib():
+    # decode workers reach this at the same time: one builds and loads, the
+    # others wait for it
+    with _lock:
+        return _get_lib_locked()
+
+
+def _get_lib_locked():
     global _lib, _load_error
     if _lib is not None or _load_error is not None:
         return _lib

@@ -8,6 +8,7 @@ files (src/realign_reads.py:56-83).
 import ctypes
 import os
 import subprocess
+import threading
 
 import numpy as np
 
@@ -17,9 +18,17 @@ _SRC = os.path.join(_DIR, "realign_native.cpp")
 
 _lib = None
 _load_error = None
+_lock = threading.Lock()
 
 
 def get_lib():
+    # decode workers reach this at the same time: one builds and loads, the
+    # others wait for it
+    with _lock:
+        return _get_lib_locked()
+
+
+def _get_lib_locked():
     global _lib, _load_error
     if _lib is not None or _load_error is not None:
         return _lib

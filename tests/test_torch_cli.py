@@ -1,8 +1,8 @@
 """``clairs_to_tpu_torch run --device cpu`` against ``clairs_to_tpu run`` on
 the same simulated BAM with the default flags (phasing and the haplotype
 filter, PoN tagging, Verdict, tabix output), the Illumina path, genotyping,
-BAQ and the opt-out run; plus the port's import hygiene and its refusal of
-what it does not have."""
+BAQ and the opt-out run; the host subcommands of both dispatchers on the
+same files; and the port's import hygiene."""
 
 import os
 import subprocess
@@ -278,18 +278,107 @@ def test_run_cna_resource_dir_matches_jax_cli(dense, tmp_path, capsys):
         assert (jcna / n).read_text() == (tcna / n).read_text(), n
 
 
-def test_run_refuses_unported_stages(dataset, tmp_path):
-    args = _args(dataset, str(tmp_path / "o")) + ["--device", "cpu"]
-    with pytest.raises(SystemExit, match="several GPUs"):
-        torch_main(args + ["--device_count", "2"])
-    with pytest.raises(SystemExit, match="multi-host"):
-        torch_main(args + ["--coordinator_address", "localhost:1234"])
-    with pytest.raises(SystemExit, match="multi-host"):
-        torch_main(args + ["--num_processes", "2", "--process_id", "0"])
-    # nothing else is refused: the default flags name no missing stage
-    from clairs_to_tpu_torch.cli.run import build_parser, unported_stages
+@pytest.fixture(scope="module")
+def chunk_vcfs(dense, tmp_path_factory):
+    """A three-chunk run's per-chunk and merged VCFs, and a PoN."""
+    out = tmp_path_factory.mktemp("torchcli_subcommands")
+    assert torch_main(_args(dense, str(out / "run")) + OPT_OUT_FLAGS
+                      + ["--device", "cpu", "--chunk_num", "3"]) == 0
+    return dict(shards=str(out / "run" / "tmp" / "vcf_output"),
+                merged=str(out / "run" / "tmp" / "vcf_output" / "snv_pileup.vcf"),
+                final=str(out / "run" / "snv.vcf"),
+                pon=_write_pon(dense, str(out / "pon.vcf"), indexed=True))
 
-    assert unported_stages(build_parser().parse_args(args + ["--apply_baq", "-G", "x.vcf"])) == []
+
+SUBCOMMANDS = {
+    "sort_vcf": lambda ds, v, out: [
+        "--input_dir", v["shards"], "--vcf_fn_prefix", "p_snv_", "--output_fn", f"{out}/o.vcf"],
+    "nonsomatic_tagging": lambda ds, v, out: [
+        "--pileup_vcf_fn", v["merged"], "--output_vcf_fn", f"{out}/o.vcf",
+        "--panel_of_normals", v["pon"], "--panel_of_normals_require_allele_matching", "False"],
+    "postprocess_vcf": lambda ds, v, out: [
+        "--pileup_vcf_fn", v["merged"], "--output_fn", f"{out}/o.vcf", "--platform", "ont",
+        "--ref_fn", ds["fasta"], "--qual", "6", "--compress_vcf"],
+    "compare_vcf": lambda ds, v, out: [
+        "--truth_vcf_fn", ds["truth"], "--input_vcf_fn", v["final"], "--ctg_name", ds["ctg"]],
+    "compare_vcf_region": lambda ds, v, out: [
+        "--truth_vcf_fn", ds["truth"], "--input_vcf_fn", v["final"], "--ctg_start", "5000",
+        "--ctg_end", "30000", "--skip_genotyping", "False", "--input_filter_tag", "PASS"],
+    "gen_contaminated_bam": lambda ds, v, out: [
+        "--output_dir", f"{out}/sim", "--purity", "0.6", "--seed", "5", "--genome_len", "8000",
+        "--coverage", "20", "--n_snv", "5", "--n_indel", "2", "--n_germline", "3"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(SUBCOMMANDS))
+def test_subcommand_matches_jax(case, dense, chunk_vcfs, tmp_path, capsys):
+    """Each host subcommand of ``python -m clairs_to_tpu_torch`` against the
+    JAX package's on the same files: the same lines printed, the same files
+    written, byte for byte."""
+    from clairs_to_tpu.__main__ import SUBMODULES as jax_subs
+    from clairs_to_tpu_torch.__main__ import SUBMODULES as torch_subs
+
+    name = case.replace("_region", "")
+    printed, files = [], []
+    for tag, subs in (("jax", jax_subs), ("torch", torch_subs)):
+        out = tmp_path / tag
+        out.mkdir()
+        capsys.readouterr()
+        assert subs[name](SUBCOMMANDS[case](dense, chunk_vcfs, str(out))) == 0
+        printed.append(capsys.readouterr().out.replace(str(out), "OUT"))
+        files.append({os.path.relpath(os.path.join(root, n), out): open(
+            os.path.join(root, n), "rb").read() for root, _, ns in os.walk(out) for n in ns})
+    assert printed[0] == printed[1] and (printed[1].strip() or name == "postprocess_vcf")
+    assert sorted(files[0]) == sorted(files[1])
+    for rel in files[0]:
+        assert files[0][rel] == files[1][rel], rel
+    if name == "compare_vcf":
+        assert "Precision" in printed[1] and not files[1]
+    elif name == "gen_contaminated_bam":
+        assert any(rel.endswith(".bam") for rel in files[1])
+    else:
+        assert len(files[1]["o.vcf"]) > 200
+    if name == "postprocess_vcf":
+        assert "o.vcf.gz" in files[1] and "o.vcf.gz.tbi" in files[1]
+    if name == "nonsomatic_tagging":
+        assert b"NonSomatic" in files[1]["o.vcf"] and "tagged=" in printed[1]
+
+
+def test_dispatcher_lists_the_ported_subcommands(monkeypatch, capsys):
+    from clairs_to_tpu_torch import __main__ as entry
+
+    monkeypatch.setattr(sys, "argv", ["clairs_to_tpu_torch", "--help"])
+    assert entry.main() == 0
+    listed = capsys.readouterr().out.split("Available submodules:")[1].split()
+    assert listed == ["compare_vcf", "gen_contaminated_bam", "nonsomatic_tagging",
+                      "postprocess_vcf", "run", "serve", "sort_vcf"]
+    monkeypatch.setattr(sys, "argv", ["clairs_to_tpu_torch", "train"])
+    assert entry.main() == 1 and "Unknown submodule" in capsys.readouterr().out
+
+
+def test_compare_vcf_min_af_matches_jax(dense, chunk_vcfs):
+    """compare_vcf's AF-aware path (bench/af_distribution.py recounts the
+    tumor support of every truth site) in both packages."""
+    from clairs_to_tpu.bench.compare import compare_vcf as jax_compare
+    from clairs_to_tpu.genome.fasta import FastaFile as JaxFasta
+    from clairs_to_tpu_torch.bench.compare import compare_vcf as torch_compare
+    from clairs_to_tpu_torch.genome.fasta import FastaFile as TorchFasta
+
+    kw = dict(ctg_name=dense["ctg"], min_af=0.2, tumor_bam_fn=dense["bam"])
+    want = jax_compare(dense["truth"], chunk_vcfs["final"], fasta=JaxFasta(dense["fasta"]), **kw)
+    got = torch_compare(dense["truth"], chunk_vcfs["final"], fasta=TorchFasta(dense["fasta"]), **kw)
+    plain = torch_compare(dense["truth"], chunk_vcfs["final"], ctg_name=dense["ctg"])
+    assert (got.tp, got.fp, got.fn, got.f1, got.best_cutoff) == (
+        want.tp, want.fp, want.fn, want.f1, want.best_cutoff)
+    assert got.tp_set == want.tp_set and got.fn_set == want.fn_set and got.tp > 0
+    assert got.fn <= plain.fn
+
+
+def test_simulation_profiles_match_jax():
+    from clairs_to_tpu.bench.profiles import PROFILES as jax_profiles
+    from clairs_to_tpu_torch.bench.profiles import PROFILES as torch_profiles
+
+    assert torch_profiles == jax_profiles
 
 
 def test_run_without_gpu_needs_device_cpu(dataset, tmp_path, monkeypatch):
@@ -318,6 +407,12 @@ def test_port_imports_neither_jax_nor_reference():
         "import clairs_to_tpu_torch.verdict.resources, clairs_to_tpu_torch.verdict.logr_baf\n"
         "import clairs_to_tpu_torch.verdict.aspcf, clairs_to_tpu_torch.verdict.ascat\n"
         "import clairs_to_tpu_torch.verdict.tagging, clairs_to_tpu_torch.verdict.pipeline\n"
+        "import clairs_to_tpu_torch.serve, clairs_to_tpu_torch.parallel.scheduler\n"
+        "import clairs_to_tpu_torch.bench.compare, clairs_to_tpu_torch.bench.profiles\n"
+        "import clairs_to_tpu_torch.bench.af_distribution\n"
+        "import clairs_to_tpu_torch.infer.engine, clairs_to_tpu_torch.ops.gru\n"
+        "assert clairs_to_tpu_torch.parallel.scheduler.init_distributed(None) == (1, 0)\n"
+        "clairs_to_tpu_torch.serve.make_server('127.0.0.1', 0).server_close()\n"
         "assert clairs_to_tpu_torch.postcall.verdict_native.available()\n"
         "assert clairs_to_tpu_torch.realign.available()\n"
         "build_parser().parse_args(['-T', 'a', '-R', 'b', '-o', 'c', '-p', 'ont'])\n"
