@@ -39,8 +39,21 @@ Phases, each fatal on failure:
      a single-process run's;
   9. replicas on the one card: an engine with ``devices=[cuda:0, cuda:0]``
      against the one-device engine at 8192 rows (8 launches a forward
-     instead of 4, the split, the per-part events).
-Each path's GRU launches are counted from 0.  Prints the card's name and power
+     instead of 4, the split, the per-part events);
+ 10. training at the flagship widths: (a) one step of the SNV pair on 800
+     dual-view rows at dropout 0 from the same weights on the card and on
+     the CPU path, loss, gradient global norm and every gradient leaf
+     (‖g - w‖ / ‖w‖) within 1e-4 relative, the worst leaf named;
+     (b) twenty steps timed with CUDA events, split into forward + loss,
+     backward and clip + AdamW, with the peak device memory, then five
+     under torch.profiler for the device's busy share of the unprofiled
+     wall; (c) ``train --dual_view --platform ont`` for ``--mode snv`` and
+     ``--mode indel`` into the layout ``run --model_dir`` reads; (d) its
+     networks' ``predict_probs`` with the kernel against the plain GRU,
+     within 5e-5; (c) and (d) must launch the kernel exactly as often as
+     their row counts say (path ``train``); (e) ``run --model_dir`` with
+     those networks on phase 4's genome and flags (path ``train_run``).
+Each path's GRU launches are counted from 0 just before it.  Prints the card's name and power
 limit, a ``kernels`` JSON line, and as the last line ``{"ok": true,
 "device": {...}}``.  Exits non-zero without a GPU.  Working files go under
 build/chip_smoke/ in the checkout.
@@ -75,6 +88,7 @@ PEAK_BYTES = 3.35e12
 KERNEL_TOL = 1e-5     # kernel vs plain GRU outputs, fp32 both
 ENGINE_TOL = 5e-5     # class-1 probabilities, kernel engine vs plain-GRU engine
 REPLICA_TOL = 5e-5    # class-1 probabilities, two replicas vs one device
+TRAIN_TOL = 1e-4      # relative: loss and gradient global norm, card vs CPU step
 GENOME_LEN = 2_000_000
 ILMN_GENOME_LEN = 300_000
 COVERAGE = 60
@@ -738,6 +752,155 @@ def phase_replicas(dev):
     return out
 
 
+def _timed_steps(tr, batch, gen, steps=20, warmup=3):
+    """Median ms of each part of a training step over ``steps`` steps
+    (CUDA events), the host wall per step, and the peak device memory.
+    ``gen``: the dropout generator."""
+    for _ in range(warmup):
+        tr.step(*batch, generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(steps)]
+    t0 = time.perf_counter()
+    for ev in events:
+        ev[0].record()
+        loss = tr.loss(*batch, generator=gen)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        tr.apply_gradients()
+        ev[3].record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    parts = ("forward_loss", "backward", "clip_adamw")
+    out = {f"{name}_ms": statistics.median(ev[i].elapsed_time(ev[i + 1]) for ev in events)
+           for i, name in enumerate(parts)}
+    out.update(step_ms=statistics.median(ev[0].elapsed_time(ev[3]) for ev in events),
+               wall_ms=wall_ms, peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+    return out
+
+
+def _device_busy(tr, batch, gen, wall_ms, steps=5):
+    """torch.profiler over ``steps`` training steps: the card's kernel time
+    a step over ``wall_ms``, the host wall of one step timed without the
+    profiler (its CPU-activity tracing stretches the wall it traces), the
+    kernel launches a step, and the eight kernels with the most device time
+    (ms and launches a step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            tr.step(*batch, generator=gen)
+        torch.cuda.synchronize()
+    profiled_ms = (time.perf_counter() - t0) * 1e3 / steps
+    # device-side events, less the GPU ranges of user annotations (such as
+    # "Optimizer.step#AdamW.step"), which overlap the kernels inside them
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return dict(device_ms_per_step=device_ms, wall_ms_per_step=wall_ms,
+                device_busy=device_ms / wall_ms, profiled_wall_ms_per_step=profiled_ms,
+                kernel_launches_per_step=sum(e.count for e in kernels) / steps,
+                top_kernels=[(e.key[:80], e.self_device_time_total / 1e3 / steps,
+                              e.count / steps) for e in top])
+
+
+def phase_train(card, ds):
+    """Phase 10: the training path at the flagship widths; ``ds`` is phase
+    4's genome.  Returns its numbers, the GRU launches of the training path
+    (``train``'s calibration forwards and (d)'s, counted from 0 before (c))
+    and those of the calling run (e), counted from 0 before it."""
+    from clairs_to_tpu_torch.__main__ import SUBMODULES
+    from clairs_to_tpu_torch.bench.grad_check import compare, step_grads, train_batch
+    from clairs_to_tpu_torch.models.checkpoint import load_checkpoint
+    from clairs_to_tpu_torch.ops import gru
+    from clairs_to_tpu_torch.train import DualTrainer, TrainConfig
+
+    res = {}
+    # (a) one step, card against CPU, from the same weights
+    tc = TrainConfig(dropout_rate=0.0)
+    batch, (x, x_neg, cov) = train_batch(tc.batch_size, 5, "cuda")
+    card_tr = DualTrainer("snv", tc, device="cuda")
+    cpu_tr = DualTrainer("snv", tc, device="cpu")
+    for net in ("aff", "neg"):
+        cpu_tr.models[net].load_state_dict(card_tr.models[net].state_dict())
+    t0 = time.time()
+    got = step_grads(card_tr, batch)
+    t1 = time.time()
+    want = step_grads(cpu_tr, [t.cpu() for t in batch])
+    cpu_s = time.time() - t1
+    gap = compare(got, want)
+    log(f"[train] {card}: one flagship SNV step on {tc.batch_size} rows: loss cuda "
+        f"{got[0]:.7f} cpu {want[0]:.7f} (rel {gap['loss_rel']:.2e}); grad global norm "
+        f"cuda {got[1]:.7f} cpu {want[1]:.7f} (rel {gap['norm_rel']:.2e}); worst leaf "
+        f"{gap['worst_leaf']} (|g| {gap['worst_leaf_norm']:.3e}) rel {gap['worst_leaf_rel']:.2e}; "
+        f"largest share of the norm gap {gap['norm_gap_leaf']} ({gap['norm_gap_share']:.2f}); "
+        f"the card's step took {t1 - t0:.1f} s (first, with cuDNN's planning), the CPU's "
+        f"{cpu_s:.1f} s")
+    if max(gap["loss_rel"], gap["norm_rel"], gap["worst_leaf_rel"]) > TRAIN_TOL:
+        raise AssertionError(f"train: the card's step disagrees with the CPU's ({gap})")
+    res.update(gap, loss=got[0], grad_norm=got[1])
+    # (b) the step's time and memory, dropout on as in training
+    timed_tr = DualTrainer("snv", TrainConfig(), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    res["step"] = _timed_steps(timed_tr, batch, gen)
+    log(f"[train] {card}: flagship SNV step at {tc.batch_size} rows (median of 20, CUDA "
+        f"events): " + json.dumps(res["step"]))
+    res["profile"] = _device_busy(timed_tr, batch, gen, res["step"]["wall_ms"])
+    log(f"[train] torch.profiler over 5 steps: " + json.dumps(res["profile"]))
+    del card_tr, cpu_tr, timed_tr
+    # (c) the subcommand, both modes, into run's --model_dir layout
+    model_dir = os.path.join(WORK, "trained")
+    res["cli_wall_s"] = {}
+    gru.gru_direction.launches = 0
+    for mode, sub in (("snv", ""), ("indel", "indel")):
+        t0 = time.time()
+        rc = SUBMODULES["train"](["--output_dir", os.path.join(model_dir, sub), "--mode", mode,
+                                  "--dual_view", "--platform", "ont", "--n_train", "1280",
+                                  "--epochs", "2"])
+        res["cli_wall_s"][mode] = time.time() - t0
+        if rc != 0:
+            raise AssertionError(f"train --mode {mode} exited {rc}")
+        log(f"[train] {card}: train --mode {mode} --dual_view --n_train 1280 --epochs 2 took "
+            f"{res['cli_wall_s'][mode]:.2f} s")
+    # (d) its SNV networks with the kernel against the plain GRU
+    tr = DualTrainer("snv", device="cuda")
+    for net, name in (("aff", "aff.npz"), ("neg", "neg.npz")):
+        load_checkpoint(os.path.join(model_dir, name), tr.models[net])
+    kern = tr.predict_probs(x, rescale_cov=cov, x_neg=x_neg)
+    res["launches"] = gru.gru_direction.launches
+    plain = tr.predict_probs(x, rescale_cov=cov, x_neg=x_neg, use_kernel=False)
+    err = max(float(np.abs(a - b).max()) for a, b in zip(kern, plain))
+    log(f"[train] predict_probs on {len(x)} rows: kernel vs plain GRU max |p diff| {err:.3e}")
+    if err > ENGINE_TOL or not all(np.isfinite(a).all() for a in kern):
+        raise AssertionError(f"train: predict_probs with the kernel disagrees ({err:.3e})")
+    res["predict_max_abs_err"] = err
+    # 4 launches a NEG forward (two bidirectional layers), one forward per
+    # 512 rows: train's calibration forwards 3000 rows a mode, (d) 800
+    batches = 2 * -(-3000 // 512) + -(-len(x) // 512)
+    log(f"[train] launches_by_path[\"train\"] = {res['launches']} (expected {4 * batches})")
+    if res["launches"] != 4 * batches:
+        raise AssertionError(f"train: {res['launches']} GRU launches, expected {4 * batches}")
+    # (e) call with the trained networks
+    out_dir = os.path.join(WORK, "trained_run")
+    gru.gru_direction.launches = 0
+    wall, n_cand, summary = _run_cli(ds, out_dir, "cuda", extra=("--model_dir", model_dir,
+                                                                 *OPT_OUT))
+    res["run_launches"] = gru.gru_direction.launches
+    for name in ("snv.vcf", "indel.vcf"):
+        if not os.path.exists(os.path.join(out_dir, name)):
+            raise AssertionError(f"train: run --model_dir wrote no {name}")
+    rows = {n: len(_calls(os.path.join(out_dir, n), None)) for n in ("snv.vcf", "indel.vcf")}
+    log(f"[train] run --model_dir with the trained networks: {n_cand} candidates in "
+        f"{wall:.2f} s, rows {json.dumps(rows)}, GRU launches {res['run_launches']}")
+    res.update(run_wall_s=wall, run_rows=rows)
+    return res
+
+
 def phase_end_to_end(card, genome_len, ilmn_len):
     """Phases 4 to 8 on one simulated ONT genome and one Illumina genome."""
     from clairs_to_tpu_torch import realign
@@ -769,6 +932,7 @@ def phase_end_to_end(card, genome_len, ilmn_len):
     res["serve"] = phase_serve(card, ds, region, res["default_ont"])
     res["two_process"] = phase_two_process(card, ds, res["default_ont"]["pon"],
                                            res["default_ont"]["candidates"])
+    res["dataset"] = ds   # for phase 10; not printed
     return res
 
 
@@ -800,6 +964,7 @@ def main(argv=None):
     engine = phase_engine(dev)
     e2e = phase_end_to_end(card, GENOME_LEN, ILMN_GENOME_LEN)
     e2e["replicas"] = phase_replicas(dev)
+    e2e["train"] = phase_train(card, e2e.pop("dataset"))
     log(f"[done] {time.time() - t_start:.1f} s; " + json.dumps(dict(engine=engine, e2e=e2e)))
 
     t = timings[192]
@@ -807,8 +972,9 @@ def main(argv=None):
         name="gru_direction", route="cuda", source="clairs_to_tpu_torch/csrc/gru.cu",
         replaces="clairs_to_tpu/ops/gru_pallas.py:61",
         launches=e2e["default_ont"]["launches"],
-        launches_by_path={k: e2e[k]["launches"] for k in (
-            "opt_out", "default_ont", "ilmn", "serve", "two_process", "replicas")},
+        launches_by_path=dict({k: e2e[k]["launches"] for k in (
+            "opt_out", "default_ont", "ilmn", "serve", "two_process", "replicas", "train")},
+            train_run=e2e["train"]["run_launches"]),
         max_abs_err=max_err, ms=t["kernel_ms"], plain_ms=t["plain_ms"],
         bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],
         bound_fp32_ms=t["bound_fp32_ms"], shape=f"T={T} B=8192 H=192",

@@ -1,10 +1,10 @@
 """Submodule dispatcher: ``python -m clairs_to_tpu_torch <submodule> [options]``.
 
 Counterpart of clairs_to_tpu/__main__.py, with the same argument surfaces:
-``run``, ``serve`` and the host stages that can be called on their own
-(``sort_vcf``, ``nonsomatic_tagging``, ``postprocess_vcf``,
-``gen_contaminated_bam``, ``compare_vcf``).  ``train`` and
-``convert_checkpoint`` are still to port.
+``run``, ``serve``, ``train``, ``convert_checkpoint`` and the host stages
+that can be called on their own (``sort_vcf``, ``nonsomatic_tagging``,
+``postprocess_vcf``, ``gen_contaminated_bam``, ``compare_vcf``).  ``train``
+runs on ``cuda`` unless given ``--device cpu``.
 """
 
 import sys
@@ -163,6 +163,84 @@ def _gen_contaminated(argv):
     )
     print(f"[INFO] dataset at purity {a.purity}: {ds['bam']}")
     return 0
+
+
+@register("train")
+def _train(argv):
+    import argparse
+
+    p = argparse.ArgumentParser(prog="train")
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--mode", default="snv", choices=["snv", "indel"])
+    p.add_argument("--epochs", type=int, default=70)
+    p.add_argument("--n_train", type=int, default=8000)
+    p.add_argument("--tiny", action="store_true")
+    p.add_argument("--learning_rate", type=float, default=1e-3)
+    p.add_argument("--dual_view", action="store_true",
+                   help="Train with platform-asymmetric AFF/NEG tensor views "
+                        "(the reference's dual-BQ design).")
+    p.add_argument("--platform", default="ont")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="Where the networks train (default: cuda).")
+    a = p.parse_args(argv)
+    import os
+    from dataclasses import asdict, replace
+
+    import numpy as np
+
+    from clairs_to_tpu_torch.bench.demo import TINY_BIGRU, TINY_CVT
+    from clairs_to_tpu_torch.bench.synth import synthesize_batch, synthesize_dual_batch
+    from clairs_to_tpu_torch.models.cvt import INDEL_ALLELES
+    from clairs_to_tpu_torch.train import (
+        DualTrainer, TrainConfig, calibrate_likelihood,
+        save_checkpoint, save_likelihood_matrix,
+    )
+
+    if a.tiny and a.mode == "indel":
+        tiny_cvt = replace(TINY_CVT, alleles=INDEL_ALLELES)
+        tiny_gru = replace(TINY_BIGRU, alleles=INDEL_ALLELES)
+    else:
+        tiny_cvt, tiny_gru = TINY_CVT, TINY_BIGRU
+
+    os.makedirs(a.output_dir, exist_ok=True)
+    rng = np.random.default_rng(7)
+    kw = dict(depth_range=(25, 95), somatic_af_range=(0.08, 0.35), mode=a.mode)
+    if a.dual_view:
+        x, x_neg, cov, _covn, som = synthesize_dual_batch(
+            rng, a.n_train, platform=a.platform, **kw)
+    else:
+        x, cov, som = synthesize_batch(rng, a.n_train, **kw)
+        x_neg = None
+    tr = DualTrainer(
+        mode=a.mode,
+        tc=TrainConfig(batch_size=256, epochs=a.epochs, learning_rate=a.learning_rate),
+        cvt_config=tiny_cvt if a.tiny else None,
+        bigru_config=tiny_gru if a.tiny else None,
+        device=a.device,
+    )
+    tr.fit(x, som, rescale_cov=cov, log_every=10, x_neg=x_neg)
+    save_checkpoint(os.path.join(a.output_dir, "aff.npz"), tr.models["aff"],
+                    arch=asdict(tr.cvt_config))
+    save_checkpoint(os.path.join(a.output_dir, "neg.npz"), tr.models["neg"],
+                    arch=asdict(tr.bigru_config))
+    if a.dual_view:
+        xc, xnc, covc, _cn, somc = synthesize_dual_batch(
+            np.random.default_rng(55), 3000, platform=a.platform, **kw)
+        pa, pn = tr.predict_probs(xc, rescale_cov=covc, x_neg=xnc)
+    else:
+        xc, covc, somc = synthesize_batch(np.random.default_rng(55), 3000, **kw)
+        pa, pn = tr.predict_probs(xc, rescale_cov=covc)
+    lik = calibrate_likelihood(pa, pn, somc, n_alleles=len(tr.cvt_config.alleles))
+    save_likelihood_matrix(os.path.join(a.output_dir, "likelihood_matrix.txt"), lik)
+    print(f"[INFO] checkpoints written to {a.output_dir}")
+    return 0
+
+
+@register("convert_checkpoint")
+def _convert(argv):
+    from clairs_to_tpu_torch.models.convert import main as convert_main
+
+    return convert_main(argv)
 
 
 def main():

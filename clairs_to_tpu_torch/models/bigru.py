@@ -2,20 +2,23 @@
 
 PyTorch counterpart of clairs_to_tpu/models/bigru.py: two stacked
 bidirectional GRUs (hidden 128 -> 192) over the 33-position axis, flatten,
-fc1(128), per-allele fc2+fc3 heads with SELU after every fc.  The gate
+fc1(128), per-allele fc2+fc3 heads with SELU after every fc, and the CvT's
+training-time fc dropout at the same three sites.  The gate
 order is r, z, n and the reset gate multiplies the *biased* hidden branch:
 n = tanh(x_n + b_in + r * (h W_hn + b_hn)).  The recurrence runs in
 ops/gru.py: the CUDA kernel for CUDA tensors, the plain loop for CPU ones.
+The kernel has no backward pass: training runs the plain loop under
+autograd, as the JAX package trains through its plain ``lax.scan``.
 """
 
 from dataclasses import dataclass
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from clairs_to_tpu_torch.models.cvt import INDEL_ALLELES, SNV_ALLELES, Head, Linear
+from clairs_to_tpu_torch.models.cvt import (INDEL_ALLELES, SNV_ALLELES, Head, Linear,
+                                            heads_forward)
 from clairs_to_tpu_torch.ops.gru import bigru_layer
 
 
@@ -60,15 +63,15 @@ class BiGRU(nn.Module):
         self.heads = nn.ModuleDict(
             {al: Head(config.fc_dim, config.num_classes) for al in config.alleles})
 
-    def forward(self, x, use_kernel=None):
+    def forward(self, x, use_kernel=None, dropout_rate=0.0, generator=None):
         """``use_kernel`` None or True: ops/gru.py's ``gru_direction`` (the
         kernel on CUDA tensors, the plain loop on CPU ones); False: the plain
-        loop everywhere."""
+        loop everywhere.  ``dropout_rate``/``generator``: training-time fc
+        dropout; the inference forward leaves them at 0/None."""
         use_kernel = True if use_kernel is None else use_kernel
         out = bigru_layer(x, _as_dict(self.gru1), self.config.hidden1, use_kernel)
         out = bigru_layer(out, _as_dict(self.gru2), self.config.hidden2, use_kernel)
-        feat = F.selu(self.fc1(out.reshape(out.shape[0], -1)))
-        return torch.stack([self.heads[al](feat) for al in self.config.alleles], dim=1)
+        return heads_forward(self, out.reshape(out.shape[0], -1), dropout_rate, generator)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):

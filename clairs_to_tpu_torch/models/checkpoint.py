@@ -1,10 +1,11 @@
 """Checkpoints: the JAX package's parameter layout into the port's modules.
 
-Counterparts of clairs_to_tpu/train.py::checkpoint_arch, load_checkpoint
-and load_checkpoint_auto.  A JAX checkpoint is a flat ``.npz`` whose keys
-are jax keypath strings such as ``"['stages']/[0]/['blocks']/[0]/['ff']/['w1']"``;
-the port's module attributes carry the same names, so each key maps to the
-``state_dict`` key ``stages.0.blocks.0.ff.w1``.  Nothing here needs jax.
+Counterparts of clairs_to_tpu/train.py::save_checkpoint, checkpoint_arch,
+load_checkpoint and load_checkpoint_auto.  A JAX checkpoint is a flat
+``.npz`` whose keys are jax keypath strings such as
+``"['stages']/[0]/['blocks']/[0]/['ff']/['w1']"``; the port's module
+attributes carry the same names, so each key maps to the ``state_dict`` key
+``stages.0.blocks.0.ff.w1``, and back.  Nothing here needs jax.
 """
 
 import json
@@ -12,6 +13,7 @@ import re
 
 import numpy as np
 import torch
+from torch import nn
 
 from clairs_to_tpu_torch.models import bigru as bigru_mod
 from clairs_to_tpu_torch.models import cvt as cvt_mod
@@ -30,16 +32,48 @@ def keypath_to_name(keypath: str) -> str:
     return ".".join(parts)
 
 
-def _flatten(tree, prefix=""):
+def module_tree(model):
+    """A module's parameters and buffers as the JAX package's nested tree:
+    a ``ModuleList`` is a list, any other module a dict of its tensors and
+    children."""
+    if isinstance(model, nn.ModuleList):
+        return [module_tree(m) for m in model]
+    tree = dict(model.named_parameters(recurse=False))
+    tree.update(model.named_buffers(recurse=False))
+    tree.update((k, module_tree(m)) for k, m in model.named_children())
+    return tree
+
+
+def keypaths(tree, prefix=()):
+    """(jax keypath string, leaf) in ``jax.tree_util.tree_flatten_with_path``
+    order: dict keys sorted, printed ``['k']``; list indices ``[i]``."""
     if isinstance(tree, dict):
-        items = tree.items()
+        items = [(f"['{k}']", tree[k]) for k in sorted(tree)]
     elif isinstance(tree, (list, tuple)):
-        items = enumerate(tree)
+        items = [(f"[{i}]", v) for i, v in enumerate(tree)]
     else:
-        yield prefix, tree
+        yield "/".join(prefix), tree
         return
-    for k, v in items:
-        yield from _flatten(v, f"{prefix}.{k}" if prefix else str(k))
+    for seg, v in items:
+        yield from keypaths(v, prefix + (seg,))
+
+
+def save_checkpoint(path, params, arch=None):
+    """Flat ``.npz`` in the JAX package's key format, which its
+    ``load_checkpoint`` reads.  ``params``: a ``CvT``/``BiGRU`` module (its
+    buffers, the BatchNorm statistics, included) or a JAX-layout tree with
+    array leaves.  ``arch``: an optional config dict stored under
+    '__arch__'."""
+    tree = module_tree(params) if isinstance(params, nn.Module) else params
+    arrays = {}
+    for key, leaf in keypaths(tree):
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach().cpu().numpy()
+        arrays[key] = np.asarray(leaf)
+    if arch is not None:
+        arrays["__arch__"] = np.frombuffer(json.dumps(arch).encode(), dtype=np.uint8)
+    np.savez_compressed(path, **arrays)
+    return path
 
 
 def _model(kind, config):
@@ -54,7 +88,8 @@ def params_from_jax(tree, kind, config):
     """The JAX parameter pytree (numpy leaves) as this port's ``state_dict``
     for a ``kind`` ("cvt" | "bigru") model of ``config``; checked against the
     module, key for key and shape for shape."""
-    state = {k: torch.from_numpy(np.array(v, np.float32)) for k, v in _flatten(tree)}
+    state = {keypath_to_name(k): torch.from_numpy(np.array(v, np.float32))
+             for k, v in keypaths(tree)}
     _model(kind, config).load_state_dict(state, strict=True)   # raises on mismatch
     return state
 

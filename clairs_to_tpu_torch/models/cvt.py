@@ -12,7 +12,13 @@ parameter pytree maps onto this module's ``state_dict`` key for key
   stride (1, 2), BatchNorm on its running statistics) and 1x1-conv
   feedforward (mult 4, exact GELU);
 * trunk flatten (NCHW row-major) -> fc1(128) -> per-allele fc2(128)+fc3(2),
-  SELU after every fc including fc3.
+  SELU after every fc including fc3;
+* training-time dropout at the JAX forward's three fc sites only: the
+  flattened trunk, the fc1 output and each head's fc2 output.
+
+The BatchNorm reads its running statistics in training too: the JAX
+package trains them as parameters (train.py optimizes the whole tree), so
+they are never batch statistics.
 
 Attention is plain torch (matmul + softmax): the JAX package computes it
 outside any Pallas kernel too.
@@ -62,6 +68,17 @@ def _param(*shape):
     return nn.Parameter(torch.empty(*shape))
 
 
+def fc_dropout(t, rate, generator):
+    """Keeps each value with probability ``1 - rate`` and scales a kept one
+    by ``1/keep``; the identity at rate 0 or without a generator.  The mask
+    is drawn from ``generator`` (on ``t``'s device), site after site."""
+    if rate <= 0.0 or generator is None:
+        return t
+    keep = 1.0 - rate
+    mask = torch.rand(t.shape, generator=generator, device=t.device) < keep
+    return torch.where(mask, t / keep, torch.zeros_like(t))
+
+
 def channel_layernorm(x, g, b, eps=1e-5):
     """Normalise over the channel dim; eps is added to the std."""
     mean = x.mean(dim=1, keepdim=True)
@@ -82,8 +99,9 @@ class Linear(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm on running statistics, in the JAX package's
-    scale/shift form."""
+    """BatchNorm on its running statistics, in the JAX package's scale/shift
+    form, in eval and train mode alike.  The statistics are buffers, so an
+    optimizer sees them only when given them (train.py does)."""
 
     def __init__(self, dim, eps=1e-5):
         super().__init__()
@@ -204,8 +222,9 @@ class Head(nn.Module):
         self.fc2 = Linear(fc_dim, fc_dim)
         self.fc3 = Linear(fc_dim, num_classes)
 
-    def forward(self, feat):
-        return F.selu(self.fc3(F.selu(self.fc2(feat))))
+    def forward(self, feat, dropout_rate=0.0, generator=None):
+        h = F.selu(fc_dropout(self.fc2(feat), dropout_rate, generator))
+        return F.selu(self.fc3(h))
 
 
 def trunk_flat_dim(config: CvTConfig) -> int:
@@ -213,6 +232,15 @@ def trunk_flat_dim(config: CvTConfig) -> int:
     for _ in range(config.num_stages):
         w = math.ceil(w / 2)
     return config.emb_dims[-1] * w
+
+
+def heads_forward(model, flat, dropout_rate, generator):
+    """fc1 and the per-allele heads of either network, with dropout on the
+    flat trunk, the fc1 output and each fc2 output, in that order."""
+    flat = fc_dropout(flat, dropout_rate, generator)
+    feat = F.selu(fc_dropout(model.fc1(flat), dropout_rate, generator))
+    return torch.stack([model.heads[al](feat, dropout_rate, generator)
+                        for al in model.config.alleles], dim=1)
 
 
 class CvT(nn.Module):
@@ -230,12 +258,13 @@ class CvT(nn.Module):
         self.heads = nn.ModuleDict(
             {al: Head(config.fc_dim, config.num_classes) for al in config.alleles})
 
-    def forward(self, x):
+    def forward(self, x, dropout_rate=0.0, generator=None):
+        """``dropout_rate``/``generator``: training-time fc dropout; the
+        inference forward leaves them at 0/None."""
         x = x.transpose(1, 2).unsqueeze(2)   # (B, W, C) -> NCHW with H=1
         for stage in self.stages:
             x = stage(x)
-        feat = F.selu(self.fc1(x.reshape(x.shape[0], -1)))
-        return torch.stack([self.heads[al](feat) for al in self.config.alleles], dim=1)
+        return heads_forward(self, x.reshape(x.shape[0], -1), dropout_rate, generator)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):

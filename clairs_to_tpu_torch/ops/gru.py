@@ -145,6 +145,9 @@ def gru_direction(x_gates, w_hh_t, b_hh, reverse=False):
         raise ValueError(f"gru_direction: hidden {H} outside 1..{MAX_HIDDEN}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("gru_direction: tensors must be contiguous")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError("gru_direction: the kernel has no backward pass; train through "
+                           "gru_direction_plain (use_kernel=False)")
     if _lib is None:
         build()
     out = torch.empty((T, B, H), dtype=torch.float32, device=x_gates.device)

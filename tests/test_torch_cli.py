@@ -11,12 +11,21 @@ import sys
 import pytest
 import torch
 
+import jax_native_libs
 from clairs_to_tpu.bamio import simulate
 from clairs_to_tpu.cli.run import main as jax_main
 from clairs_to_tpu_torch.cli.run import main as torch_main
 from clairs_to_tpu_torch.vcf.tabix import TabixReader, write_tabix_vcf
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_libs():
+    """The JAX side runs on its C++ libraries (tests/jax_native_libs.py)."""
+    jax_native_libs.load_all()
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEMO = os.path.join(REPO, "assets", "demo_ont_snv")
 OPT_OUT_FLAGS = ["--disable_intermediate_phasing", "--disable_verdict",
@@ -345,15 +354,119 @@ def test_subcommand_matches_jax(case, dense, chunk_vcfs, tmp_path, capsys):
 
 
 def test_dispatcher_lists_the_ported_subcommands(monkeypatch, capsys):
+    from clairs_to_tpu import __main__ as jax_entry
     from clairs_to_tpu_torch import __main__ as entry
 
     monkeypatch.setattr(sys, "argv", ["clairs_to_tpu_torch", "--help"])
     assert entry.main() == 0
     listed = capsys.readouterr().out.split("Available submodules:")[1].split()
-    assert listed == ["compare_vcf", "gen_contaminated_bam", "nonsomatic_tagging",
-                      "postprocess_vcf", "run", "serve", "sort_vcf"]
-    monkeypatch.setattr(sys, "argv", ["clairs_to_tpu_torch", "train"])
+    # every subcommand of the JAX package
+    assert listed == sorted(jax_entry.SUBMODULES) == [
+        "compare_vcf", "convert_checkpoint", "gen_contaminated_bam", "nonsomatic_tagging",
+        "postprocess_vcf", "run", "serve", "sort_vcf", "train"]
+    monkeypatch.setattr(sys, "argv", ["clairs_to_tpu_torch", "no_such_stage"])
     assert entry.main() == 1 and "Unknown submodule" in capsys.readouterr().out
+
+
+@pytest.fixture(scope="module")
+def trained_dir(tmp_path_factory):
+    """``train --tiny --device cpu`` for both modes, in the layout that
+    ``run --model_dir`` reads."""
+    from clairs_to_tpu_torch.__main__ import SUBMODULES
+
+    out = tmp_path_factory.mktemp("torchcli_train")
+    for mode, sub in (("snv", ""), ("indel", "indel")):
+        assert SUBMODULES["train"](["--output_dir", str(out / sub), "--mode", mode, "--tiny",
+                                    "--device", "cpu", "--n_train", "300", "--epochs", "1"]) == 0
+    return str(out)
+
+
+def test_train_writes_what_jax_loads(trained_dir):
+    import jax.numpy as jnp
+    import numpy as np
+
+    from clairs_to_tpu.models import bigru as jbigru
+    from clairs_to_tpu.models import cvt as jcvt
+    from clairs_to_tpu.ops.posterior import load_likelihood_matrix
+    from clairs_to_tpu.train import load_checkpoint_auto as jax_load
+    from clairs_to_tpu_torch.models.checkpoint import load_checkpoint_auto
+
+    x = np.random.default_rng(2).integers(-30, 30, size=(5, 33, 34)).astype(np.float32)
+    for sub, mode, n_al in (("", "snv", 4), ("indel", "indel", 6)):
+        d = os.path.join(trained_dir, sub)
+        assert sorted(os.listdir(d)) == sorted(
+            ["aff.npz", "neg.npz", "likelihood_matrix.txt"] + (["indel"] if not sub else []))
+        for name, kind, fwd in (("aff.npz", "cvt", jcvt.forward), ("neg.npz", "bigru",
+                                                                  jbigru.forward)):
+            params, jconfig = jax_load(os.path.join(d, name), mode=mode, kind=kind)
+            model, config = load_checkpoint_auto(os.path.join(d, name), mode=mode, kind=kind,
+                                                 device="cpu")
+            assert len(jconfig.alleles) == len(config.alleles) == n_al
+            with torch.no_grad():
+                got = model(torch.from_numpy(x)).numpy()
+            np.testing.assert_allclose(got, np.asarray(fwd(params, jnp.asarray(x), jconfig)),
+                                       rtol=1e-5, atol=1e-5)
+        lik = load_likelihood_matrix(os.path.join(d, "likelihood_matrix.txt"), n_alleles=n_al)
+        assert lik.matrices.shape == (n_al, 10, 10) and np.isfinite(lik.matrices).all()
+
+
+def test_run_with_trained_model_dir_matches_jax_cli(dataset, trained_dir, tmp_path):
+    """Both CLIs call with the port's trained networks; every candidate is
+    printed, so the rows are the networks' decisions."""
+    got, _tdir, _verdict = _run_both(
+        lambda out: _args(dataset, out)[:-4] + ["--model_dir", trained_dir, "--device_batch",
+                                                "256", "--print_ref_calls"] + OPT_OUT_FLAGS,
+        tmp_path)
+    assert got["snv.vcf"], "no SNV rows"
+
+
+class _PickledModule(torch.nn.Module):
+    """Stands in for a reference whole-module pickle: all the converter
+    reads of it is ``state_dict()``."""
+
+    def __init__(self, state):
+        super().__init__()
+        self._state = state
+
+    def state_dict(self, *args, **kwargs):
+        return self._state
+
+
+@pytest.mark.parametrize("kind", ["aff", "neg"])
+def test_convert_checkpoint_matches_jax(kind, tmp_path):
+    """A whole-module pickle through both packages' ``convert_checkpoint``
+    and a plain state-dict pickle through the port's: the same ``.npz``,
+    at the flagship SNV widths."""
+    import numpy as np
+
+    from clairs_to_tpu.__main__ import SUBMODULES as jax_subs
+    from clairs_to_tpu.models import bigru as jbigru
+    from clairs_to_tpu.models import cvt as jcvt
+    from clairs_to_tpu_torch.__main__ import SUBMODULES as torch_subs
+    from clairs_to_tpu_torch.models.checkpoint import load_checkpoint_auto
+    from test_torch_convert import reference_state_dict
+
+    net = "cvt" if kind == "aff" else "bigru"
+    config = jcvt.SNV_CVT_CONFIG if net == "cvt" else jbigru.SNV_BIGRU_CONFIG
+    sd = {k: torch.from_numpy(v) for k, v in reference_state_dict(net, config).items()}
+    module_pkl, sd_pkl = str(tmp_path / "module.pkl"), str(tmp_path / "state.pkl")
+    torch.save({"model_acgt" if kind == "aff" else "model_nacgt": _PickledModule(sd)},
+               module_pkl)
+    torch.save(sd, sd_pkl)
+    out = {}
+    for tag, subs, pkl in (("jax", jax_subs, module_pkl), ("torch", torch_subs, module_pkl),
+                           ("torch_state", torch_subs, sd_pkl)):
+        path = str(tmp_path / f"{tag}.npz")
+        assert subs["convert_checkpoint"](["--torch_pkl", pkl, "--kind", kind, "--mode", "snv",
+                                           "--output", path]) == 0
+        with np.load(path) as data:
+            out[tag] = {k: data[k] for k in data.files}
+    for tag in ("torch", "torch_state"):
+        assert sorted(out[tag]) == sorted(out["jax"]) and "__arch__" in out[tag]
+        assert all(np.array_equal(out[tag][k], out["jax"][k]) for k in out["jax"]), tag
+    model, got = load_checkpoint_auto(path, kind=net, device="cpu")
+    assert got.alleles == config.alleles
+    assert sum(t.numel() for t in model.state_dict().values()) == sum(v.numel() for v in sd.values())
 
 
 def test_compare_vcf_min_af_matches_jax(dense, chunk_vcfs):
@@ -411,6 +524,11 @@ def test_port_imports_neither_jax_nor_reference():
         "import clairs_to_tpu_torch.bench.compare, clairs_to_tpu_torch.bench.profiles\n"
         "import clairs_to_tpu_torch.bench.af_distribution\n"
         "import clairs_to_tpu_torch.infer.engine, clairs_to_tpu_torch.ops.gru\n"
+        "import clairs_to_tpu_torch.train, clairs_to_tpu_torch.models.convert\n"
+        "import clairs_to_tpu_torch.bench.synth, clairs_to_tpu_torch.bench.demo\n"
+        "import clairs_to_tpu_torch.bench.grad_check\n"
+        "from clairs_to_tpu_torch.__main__ import SUBMODULES\n"
+        "assert {'train', 'convert_checkpoint'} <= set(SUBMODULES)\n"
         "assert clairs_to_tpu_torch.parallel.scheduler.init_distributed(None) == (1, 0)\n"
         "clairs_to_tpu_torch.serve.make_server('127.0.0.1', 0).server_close()\n"
         "assert clairs_to_tpu_torch.postcall.verdict_native.available()\n"

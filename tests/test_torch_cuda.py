@@ -69,3 +69,36 @@ def test_kernel_rejects_bad_inputs(cuda):
     xg, w, b = _inputs(2, 257, seed=0, device=cuda)
     with pytest.raises(ValueError):
         tgru.gru_direction(xg, w, b)
+
+
+def test_kernel_refuses_to_be_differentiated(cuda):
+    """The kernel has no backward pass: asked for a gradient it raises, so
+    training cannot silently lose the recurrence's gradients."""
+    xg, w, b = _inputs(8, 16, seed=0, device=cuda)
+    w.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tgru.gru_direction(xg, w, b)
+    with torch.no_grad():
+        tgru.gru_direction(xg, w, b)
+
+
+def test_training_step_on_the_card_matches_the_cpu(cuda):
+    """One step of the tiny pair from the same weights: the card's loss and
+    gradient norm against the CPU path's (the plain recurrence both ways)."""
+    from clairs_to_tpu_torch.bench.demo import TINY_BIGRU, TINY_CVT
+    from clairs_to_tpu_torch.bench.synth import synthesize_batch
+    from clairs_to_tpu_torch.train import DualTrainer, TrainConfig
+
+    torch.backends.cudnn.allow_tf32 = False
+    x, cov, som = synthesize_batch(np.random.default_rng(0), 256)
+    x = x * np.where(cov > 50, 50.0 / cov, 1.0).astype(np.float32)[:, None, None]
+    aff = np.stack([som == k for k in range(4)], axis=1).astype(np.int64)
+    got = []
+    for device in ("cuda", "cpu"):
+        tr = DualTrainer("snv", TrainConfig(dropout_rate=0.0), TINY_CVT, TINY_BIGRU,
+                         device=device)
+        batch = [torch.from_numpy(a).to(device) for a in (x, x, aff, 1 - aff)]
+        loss = tr.loss(*batch)
+        loss.backward()
+        got.append((loss.item(), tr.apply_gradients().item()))
+    np.testing.assert_allclose(got[0], got[1], rtol=1e-4)

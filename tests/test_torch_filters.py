@@ -3,7 +3,9 @@ tests, the phaser and its haplotags, the external-phaser plumbing, the
 9-verdict haplotype filter, the 4-verdict hard filter and the Illumina
 realignment filter.
 
-One simulated chunk is decoded by each package's own decoder (the fused
+The JAX side always runs on its C++ libraries: ``_mod`` makes sure of them
+(tests/jax_native_libs.py), so a cold parallel build in another test
+process cannot leave it on its numpy fallback.  One simulated chunk is decoded by each package's own decoder (the fused
 window decode and the full entry table), and the same sites go through each
 package's engines.  Everything discrete is held to equality; the Fisher
 p-value to 1e-12 (it is the same float64 arithmetic, so it is equal in
@@ -17,12 +19,15 @@ import stat
 import numpy as np
 import pytest
 
+import jax_native_libs
 from clairs_to_tpu.bamio import simulate
 
 PKGS = ("clairs_to_tpu", "clairs_to_tpu_torch")
 
 
 def _mod(pkg, name):
+    if pkg == "clairs_to_tpu":
+        jax_native_libs.load_all()
     return importlib.import_module(f"{pkg}.{name}")
 
 
@@ -39,6 +44,23 @@ def test_native_libraries_build_and_load():
     # each loads the library that lies beside its own source, not the other package's
     for mod in (realign, verdict_native):
         assert os.path.dirname(mod._SO) == os.path.dirname(os.path.abspath(mod.__file__))
+
+
+def test_failed_jax_library_load_is_rebuilt(tmp_path, monkeypatch):
+    """A JAX loader that read a library another process was still writing
+    keeps the error; the tests' helper rebuilds it under its lock and loads
+    it again, leaving no temporary file."""
+    mod = importlib.import_module("clairs_to_tpu.realign")
+    so = tmp_path / os.path.basename(mod._SO)
+    so.write_bytes(b"\x7fELF")
+    monkeypatch.setattr(mod, "_SO", str(so))
+    monkeypatch.setattr(mod, "_lib", None)
+    monkeypatch.setattr(mod, "_load_error", None)
+    assert mod.get_lib() is None and "too short" in str(mod._load_error)
+    assert jax_native_libs.loaded("clairs_to_tpu.realign") is mod
+    assert mod._lib is not None and mod._load_error is None
+    assert mod.get_consensus("ACGT" * 30, ["ACGT" * 10] * 4)
+    assert os.listdir(tmp_path) == [so.name]
 
 
 # --- Fisher --------------------------------------------------------------

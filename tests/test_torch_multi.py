@@ -12,12 +12,21 @@ import sys
 import pytest
 import torch
 
+import jax_native_libs
 from clairs_to_tpu.bamio import simulate
 from clairs_to_tpu_torch.cli.run import main as torch_main
 from test_torch_cli import DEMO, DENSE, REPO, _log_lines, _rows
 from test_torch_scheduler import free_port
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_libs():
+    """The JAX side runs on its C++ libraries (tests/jax_native_libs.py)."""
+    jax_native_libs.load_all()
+
+
 CHILD_TIMEOUT = 300
 # the dense-germline genome of test_torch_cli.py (reads link the sites, Verdict
 # finds its loci), with indels, so that both outputs have rows in every chunk
