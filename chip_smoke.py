@@ -52,7 +52,14 @@ Phases, each fatal on failure:
      networks' ``predict_probs`` with the kernel against the plain GRU,
      within 5e-5; (c) and (d) must launch the kernel exactly as often as
      their row counts say (path ``train``); (e) ``run --model_dir`` with
-     those networks on phase 4's genome and flags (path ``train_run``).
+     those networks on phase 4's genome and flags (path ``train_run``);
+ 11. run paths: ``run`` on a simulated three-contig ONT genome (3 x 100 kb
+     at 60x, ``--chunk_size 50000``) with ``-c chr1,chr3``, a BED and
+     ``--alt_fn`` with ``--output_depth true --output_alt_info true``, on the
+     card and with ``--device cpu`` (the same rows, the same dump); then, on
+     the card, one chunk's shards deleted and the first command again with
+     ``--resume`` (one chunk called again, its dump lines appended, the first
+     run's rows).  The kernel must launch in both card runs.
 Each path's GRU launches are counted from 0 just before it.  Prints the card's name and power
 limit, a ``kernels`` JSON line, and as the last line ``{"ok": true,
 "device": {...}}``.  Exits non-zero without a GPU.  Working files go under
@@ -91,6 +98,8 @@ REPLICA_TOL = 5e-5    # class-1 probabilities, two replicas vs one device
 TRAIN_TOL = 1e-4      # relative: loss and gradient global norm, card vs CPU step
 GENOME_LEN = 2_000_000
 ILMN_GENOME_LEN = 300_000
+RUN_PATHS_CONTIG = 100_000   # phase 11: three contigs, two chunks each
+RUN_PATHS_CHUNK = 50_000
 COVERAGE = 60
 
 
@@ -901,6 +910,97 @@ def phase_train(card, ds):
     return res
 
 
+def _dump_lines(text, ctg, lo, hi):
+    """The lines of an --alt_fn dump at ``ctg``:``lo``+1..``hi`` (1-based)."""
+    return "".join(l for l in text.splitlines(keepends=True)
+                   if l.split("\t")[0] == ctg and lo < int(l.split("\t")[1]) <= hi)
+
+
+def phase_run_paths(card, contig_len=RUN_PATHS_CONTIG, chunk_size=RUN_PATHS_CHUNK):
+    """Phase 11: ``run`` on a three-contig ONT genome with ``-c chr1,chr3``,
+    a BED and the ``--alt_fn`` dump (depth and alt info) on the card, then
+    the same with ``--device cpu``: the same rows and the same dump.  Then,
+    on the card, one chunk's shards deleted and the first command again with
+    ``--resume``: only that chunk is called again, its dump lines are
+    appended, and the rows are the first run's."""
+    from clairs_to_tpu_torch.bamio.simulate import make_multi_contig_dataset
+    from clairs_to_tpu_torch.genome.chunks import chunk_contig
+
+    t0 = time.time()
+    ds = make_multi_contig_dataset(
+        os.path.join(WORK, "data_multi"), n_contigs=3, seed=13, genome_len=contig_len,
+        coverage=COVERAGE, n_snv=max(5, contig_len // 10_000),
+        n_indel=max(2, contig_len // 20_000), n_germline=contig_len // 300,
+        read_length=read_model("ont")["read_length"], error_rate=read_model("ont")["error_rate"])
+    log(f"[run-paths] simulated 3 x {contig_len} bp ONT at {COVERAGE}x in "
+        f"{time.time() - t0:.1f} s")
+    bed_intervals = [("chr1", 0, contig_len * 3 // 5), ("chr2", 0, contig_len),
+                     ("chr3", contig_len * 3 // 10, contig_len)]
+    bed = os.path.join(WORK, "run_paths.bed")
+    with open(bed, "w") as f:
+        f.writelines(f"{c}\t{lo}\t{hi}\n" for c, lo, hi in bed_intervals)
+
+    def flags(alt_fn):
+        return ("-c", "chr1,chr3", "-b", bed, "--chunk_size", str(chunk_size), "--alt_fn",
+                alt_fn, "--output_depth", "true", "--output_alt_info", "true")
+
+    gpu_dir, cpu_dir = os.path.join(WORK, "run_paths_cuda"), os.path.join(WORK, "run_paths_cpu")
+    first_dir = os.path.join(WORK, "run_paths_cuda_first")
+    alt_gpu, alt_cpu = gpu_dir + ".alt.tsv", cpu_dir + ".alt.tsv"
+    res = _counted_run("run-paths", card, ds, gpu_dir, extra=flags(alt_gpu))
+    log(f"[run-paths] {card}: " + json.dumps(dict(
+        wall_s=res["wall_s"], candidates=res["candidates"], cand_per_s=res["cand_per_s"],
+        launches=res["launches"], stages=res["stages"])))
+    os.makedirs(first_dir)
+    for name in ("snv.vcf", "indel.vcf"):
+        shutil.copy(os.path.join(gpu_dir, name), first_dir)
+    rows = [r for n in ("snv.vcf", "indel.vcf") for r in _calls(os.path.join(gpu_dir, n), None)]
+    inside = all(any(r[0] == c and lo < r[1] <= hi for c, lo, hi in bed_intervals) for r in rows)
+    if not rows or {r[0] for r in rows} != {"chr1", "chr3"} or not inside:
+        raise AssertionError("run-paths: rows outside chr1 and chr3 or outside the BED, or none")
+    truth = {(r[0], r[1], r[2], r[3]) for r in _calls(ds["truth"], None)
+             if r[0] != "chr2" and any(r[0] == c and lo < r[1] <= hi for c, lo, hi in bed_intervals)}
+    called = {r[:4] for n in ("snv.vcf", "indel.vcf") for r in _calls(os.path.join(gpu_dir, n))}
+    recall = len(truth & called) / max(len(truth), 1)
+    log(f"[run-paths] PASS calls vs truth in the BED: recall {recall:.4f} "
+        f"({len(truth)} true, {len(called)} PASS)")
+    if recall < 0.5:
+        raise AssertionError("run-paths: calls do not recover the simulated variants")
+    dump = open(alt_gpu).read()
+
+    # resume: chr3's last chunk called again, on the card
+    chunks = chunk_contig("chr3", contig_len, chunk_size)
+    last = chunks[-1]
+    for kind in ("snv", "indel"):
+        os.remove(os.path.join(gpu_dir, "tmp", "vcf_output",
+                               f"p_{kind}_chr3_{last.chunk_id}.vcf"))
+    again = _counted_run("run-paths resume", card, ds, gpu_dir, extra=flags(alt_gpu) + (
+        "--resume",))
+    text = open(os.path.join(gpu_dir, "run_clairs_to_tpu_torch.log")).read()
+    resumed = text.count("resumed from existing output")
+    n_chunks = 2 * len(chunks)
+    log(f"[run-paths] --resume: {resumed} of {n_chunks} chunks resumed, "
+        f"{again['candidates']} candidates called again in {again['wall_s']:.2f} s")
+    if resumed != n_chunks - 1 or again["candidates"] <= 0:
+        raise AssertionError(f"run-paths: --resume resumed {resumed} chunks, not {n_chunks - 1}")
+    if open(alt_gpu).read() != dump + _dump_lines(dump, "chr3", last.ctg_start, last.ctg_end):
+        raise AssertionError("run-paths: --resume did not append the redone chunk's dump lines")
+    _same_calls("run-paths resume", gpu_dir, first_dir, who=("the resumed run", "the first run"))
+
+    # the CPU path on the first run's command
+    cpu = _run_cli(ds, cpu_dir, "cpu", extra=flags(alt_cpu))
+    _same_calls("run-paths", first_dir, cpu_dir)
+    if open(alt_cpu).read() != dump or not dump:
+        raise AssertionError("run-paths: the --alt_fn dumps of the card and the CPU differ")
+    log(f"[run-paths] --alt_fn dumps identical on cuda and cpu: {dump.count(chr(10))} lines; "
+        f"the CPU run took {cpu[0]:.2f} s")
+    return dict(launches=res["launches"] + again["launches"], first=res,
+                resumed=dict(chunks=resumed, wall_s=again["wall_s"],
+                             candidates=again["candidates"], launches=again["launches"],
+                             stages=again["stages"]),
+                recall=recall, dump_lines=dump.count("\n"), cpu_wall_s=cpu[0])
+
+
 def phase_end_to_end(card, genome_len, ilmn_len):
     """Phases 4 to 8 on one simulated ONT genome and one Illumina genome."""
     from clairs_to_tpu_torch import realign
@@ -965,6 +1065,7 @@ def main(argv=None):
     e2e = phase_end_to_end(card, GENOME_LEN, ILMN_GENOME_LEN)
     e2e["replicas"] = phase_replicas(dev)
     e2e["train"] = phase_train(card, e2e.pop("dataset"))
+    e2e["run_paths"] = phase_run_paths(card)
     log(f"[done] {time.time() - t_start:.1f} s; " + json.dumps(dict(engine=engine, e2e=e2e)))
 
     t = timings[192]
@@ -973,7 +1074,8 @@ def main(argv=None):
         replaces="clairs_to_tpu/ops/gru_pallas.py:61",
         launches=e2e["default_ont"]["launches"],
         launches_by_path=dict({k: e2e[k]["launches"] for k in (
-            "opt_out", "default_ont", "ilmn", "serve", "two_process", "replicas", "train")},
+            "opt_out", "default_ont", "ilmn", "serve", "two_process", "replicas", "train",
+            "run_paths")},
             train_run=e2e["train"]["run_launches"]),
         max_abs_err=max_err, ms=t["kernel_ms"], plain_ms=t["plain_ms"],
         bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],

@@ -726,9 +726,18 @@ def main(argv=None):
     except MemoryError:
         sys.stderr.write(
             "[ERROR] Out of memory. Consider: smaller --chunk_size, smaller "
-            "--device_batch, or per-contig runs (-c).\n"
+            "--device_batch, --skip_pon_md5-style options, or per-contig runs "
+            "(-c).\n"
         )
         return 1
+    except OSError as e:
+        if "Cannot allocate memory" in str(e):
+            sys.stderr.write(
+                "[ERROR] Out of memory (OS): {}. Consider smaller --chunk_size "
+                "or --device_batch.\n".format(e)
+            )
+            return 1
+        raise
     finally:
         shutdown_distributed()
 

@@ -56,16 +56,16 @@ def _configs(mode):
 _JAX_TRAINERS = {}
 
 
-def _pair(mode="snv"):
+def _pair(mode="snv", lr=LR):
     """A JAX trainer at its initial weights and a port trainer (on the CPU)
     holding the same weights, both at dropout 0.  The JAX trainer of a mode
-    is built once and reset, so its jitted step compiles once."""
+    and rate is built once and reset, so its jitted step compiles once."""
     jc, jg, tcc, tgc = _configs(mode)
-    tc = dict(batch_size=BATCH, epochs=1, learning_rate=LR, dropout_rate=0.0)
-    if mode not in _JAX_TRAINERS:
+    tc = dict(batch_size=BATCH, epochs=1, learning_rate=lr, dropout_rate=0.0)
+    if (mode, lr) not in _JAX_TRAINERS:
         jt = jtrain.DualTrainer(mode, jtrain.TrainConfig(**tc), jc, jg)
-        _JAX_TRAINERS[mode] = (jt, jt.params)
-    jt, init = _JAX_TRAINERS[mode]
+        _JAX_TRAINERS[mode, lr] = (jt, jt.params)
+    jt, init = _JAX_TRAINERS[mode, lr]
     jt.params, jt.opt_state = init, jt.tx.init(init)
     tt = ttrain.DualTrainer(mode, ttrain.TrainConfig(**tc), tcc, tgc, device="cpu")
     np_params = jax.tree_util.tree_map(np.asarray, init)
@@ -177,6 +177,47 @@ def test_one_step_parameters_match_jax(one_step):
     moved = [k for k in want if k.endswith("running_mean") and
              np.abs(got[k] - before[k]).max() > 0]
     assert moved, "the BatchNorm statistics were not trained"
+
+
+def test_train_learning_rate_flag_matches_jax(monkeypatch, tmp_path):
+    """``train --learning_rate 0.01`` gives both packages' trainers the same
+    TrainConfig, and one step at that rate from the same weights ends at
+    the same parameters, each moved by about the rate."""
+    from clairs_to_tpu.__main__ import SUBMODULES as jax_subs
+    from clairs_to_tpu_torch.__main__ import SUBMODULES as torch_subs
+
+    class Built(Exception):
+        pass
+
+    configs = []
+
+    def trainer(*args, tc=None, **kwargs):
+        configs.append(asdict(tc))
+        raise Built
+
+    for subs, module in ((jax_subs, jtrain), (torch_subs, ttrain)):
+        monkeypatch.setattr(module, "DualTrainer", trainer)
+        with pytest.raises(Built):
+            subs["train"](["--output_dir", str(tmp_path), "--tiny", "--n_train", "8",
+                           "--learning_rate", "0.01"])
+    assert configs[0] == configs[1] and configs[1]["learning_rate"] == 0.01
+    monkeypatch.undo()
+
+    lr = configs[1]["learning_rate"]
+    jt, tt = _pair(lr=lr)
+    before = _jax_leaves(jt.params)
+    x, cov, som = _data(BATCH)     # one batch: one step
+    jt.fit(x, som, rescale_cov=cov)
+    tt.fit(x, som, rescale_cov=cov)
+    want = _jax_leaves(jt.params)
+    got = {k: t.detach().numpy() for k, t in tt.tensors.items()}
+    diff = np.concatenate([np.abs(got[k] - want[k]).ravel() for k in want])
+    assert (diff <= 1e-5).mean() >= 0.999, (diff > 1e-5).mean()
+    assert diff.max() <= 2 * lr + 1e-6
+    # Adam's first step moves a weight by lr * g / (|g| + eps): by lr, or
+    # nearly, wherever the gradient is not tiny
+    moved = np.concatenate([np.abs(got[k] - before[k]).ravel() for k in want])
+    assert 0.9 * lr <= np.median(moved) <= 1.01 * lr, np.median(moved)
 
 
 def test_loss_history_matches_jax():
