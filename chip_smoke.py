@@ -3,14 +3,21 @@
     python3 chip_smoke.py [--prev-source OLD_GRU_CU]
 
 Phases, each fatal on failure:
-  1. build the GRU kernel (csrc/gru.cu) from the checkout with nvcc;
-  2. hold the kernel against its plain PyTorch version on the card
+  1. build the GRU kernels (csrc/gru.cu, the forward, and csrc/gru_bwd.cu,
+     its backward) from the checkout, one nvcc each, both at once;
+  2. hold the forward kernel against its plain PyTorch version on the card
      (H in {16, 24, 128, 192}, B in {8192, 8191, 1000}, both directions) and
      time it, with x_gates cold in L2, beside the plain version and cuDNN's
      torch.nn.GRU (a yardstick only).
      With --prev-source, an earlier gru.cu (the same C entry point, taking
      W_hh^T unpacked) is built beside it and the two are timed in turns:
-     old, new, new, old;
+     old, new, new, old.  Then the backward kernel at the training shapes
+     (T=33, H in {128, 192}, B in {800, 256}, both directions): against
+     gru_direction_backward_plain from the forward kernel's output and
+     against autograd through gru_direction_plain from that loop's own
+     output, each gradient within 1e-5 of the largest reference value; timed
+     cold in L2 beside the plain version and the backward of cuDNN's
+     torch.nn.GRU (torch.autograd.grad of its output);
   3. the engine's forward on the flagship ONT SNV and indel weights at
      device_batch 8192, with the kernel against the plain GRU;
   4. ``clairs_to_tpu_torch run -p ont`` with every post-calling stage opted
@@ -43,16 +50,23 @@ Phases, each fatal on failure:
  10. training at the flagship widths: (a) one step of the SNV pair on 800
      dual-view rows at dropout 0 from the same weights on the card and on
      the CPU path, loss, gradient global norm and every gradient leaf
-     (‖g - w‖ / ‖w‖) within 1e-4 relative, the worst leaf named;
+     (‖g - w‖ / ‖w‖) within 1e-4 relative, the worst leaf named; the card's
+     step, which runs the BiGRU through both GRU kernels (4 launches of
+     each), against the same step through the plain loop under autograd on
+     the card (``use_kernel=False``): loss within 1e-6 and every leaf within
+     1e-5, relative; and against a float64 step on the CPU (as
+     bench/grad_check.py takes it) within 1e-4;
      (b) twenty steps timed with CUDA events, split into forward + loss,
-     backward and clip + AdamW, with the peak device memory, then five
+     backward and clip + AdamW, with the peak device memory, in turns with
+     the plain-loop step (plain, kernels, kernels, plain); then five of each
      under torch.profiler for the device's busy share of the unprofiled
      wall; (c) ``train --dual_view --platform ont`` for ``--mode snv`` and
      ``--mode indel`` into the layout ``run --model_dir`` reads; (d) its
      networks' ``predict_probs`` with the kernel against the plain GRU,
-     within 5e-5; (c) and (d) must launch the kernel exactly as often as
-     their row counts say (path ``train``); (e) ``run --model_dir`` with
-     those networks on phase 4's genome and flags (path ``train_run``);
+     within 5e-5; (c) and (d) must launch each kernel exactly as often as
+     their steps and row counts say (path ``train``); (e) ``run
+     --model_dir`` with those networks on phase 4's genome and flags (path
+     ``train_run``);
  11. run paths: ``run`` on a simulated three-contig ONT genome (3 x 100 kb
      at 60x, ``--chunk_size 50000``) with ``-c chr1,chr3``, a BED and
      ``--alt_fn`` with ``--output_depth true --output_alt_info true``, on the
@@ -60,7 +74,7 @@ Phases, each fatal on failure:
      the card, one chunk's shards deleted and the first command again with
      ``--resume`` (one chunk called again, its dump lines appended, the first
      run's rows).  The kernel must launch in both card runs.
-Each path's GRU launches are counted from 0 just before it.  Prints the card's name and power
+Each path's GRU launches (forward and backward) are counted from 0 just before it.  Prints the card's name and power
 limit, a ``kernels`` JSON line, and as the last line ``{"ok": true,
 "device": {...}}``.  Exits non-zero without a GPU.  Working files go under
 build/chip_smoke/ in the checkout.
@@ -93,9 +107,12 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 KERNEL_TOL = 1e-5     # kernel vs plain GRU outputs, fp32 both
+BWD_TOL = 1e-5        # max |Δ| / max |ref| of each gradient, backward kernel vs plain
 ENGINE_TOL = 5e-5     # class-1 probabilities, kernel engine vs plain-GRU engine
 REPLICA_TOL = 5e-5    # class-1 probabilities, two replicas vs one device
 TRAIN_TOL = 1e-4      # relative: loss and gradient global norm, card vs CPU step
+KERNEL_STEP_LOSS_TOL = 1e-6   # relative: kernel step vs plain-loop step on the card
+KERNEL_STEP_GRAD_TOL = 1e-5   # relative, every gradient leaf: the same two steps
 GENOME_LEN = 2_000_000
 ILMN_GENOME_LEN = 300_000
 RUN_PATHS_CONTIG = 100_000   # phase 11: three contigs, two chunks each
@@ -164,6 +181,25 @@ def gru_bound_ms(B, H):
                 bound_fp32_ms=max(by_bytes, flops / PEAK_FP32_FLOPS * 1e3))
 
 
+def gru_bwd_bound_ms(B, H):
+    """Least time for one direction's backward kernel: x_gates, h and
+    grad_out read once, grad_x_gates and grad_hg written once, W_hh and b_hh
+    once, against HBM; its two per-step products, 2 x 2·T·B·3H·H FLOP, at
+    the 67 TFLOP/s fp32 rate outside the tensor cores (the kernel runs fp32
+    FMAs)."""
+    bytes_ = 4 * (3 * T * B * 3 * H + 2 * T * B * H + 3 * H * H + 3 * H)
+    flops = 2 * 2.0 * T * B * 3 * H * H
+    by_bytes, by_ops = bytes_ / PEAK_BYTES * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="operations" if by_ops >= by_bytes else "bytes",
+                bound_rate="fp32 67 TFLOP/s, HBM 3.35 TB/s")
+
+
+def _rel(got, want):
+    """max |got - want| / max |want|."""
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
 def start_prev_build(src):
     """Start nvcc on an earlier gru.cu; returns (process, library path)."""
     from clairs_to_tpu_torch.ops import gru
@@ -198,9 +234,10 @@ def load_prev(build):
 def phase_build(gru):
     t0 = time.time()
     diag = gru.build(verbose=True)
-    log(f"[build] gru.cu built and loaded in {time.time() - t0:.2f} s")
+    log(f"[build] gru.cu and gru_bwd.cu built (one nvcc each, at once) and loaded in "
+        f"{time.time() - t0:.2f} s")
     for line in diag.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if any(k in line for k in ("registers", "spill", "smem", ".cu:", "Compiling entry")):
             log(f"[build] {line.strip()}")
 
 
@@ -247,6 +284,64 @@ def phase_kernel(gru, dev, prev=None):
                 timings[H] = t
                 log(f"[kernel] timing T={T} B={B} H={H}: " + json.dumps(t))
     return max_err, timings
+
+
+GRADS = ("grad_x_gates", "grad_w_hh_t", "grad_b_hh")
+
+
+def phase_backward(gru, dev):
+    """Phase 2, the backward kernel at the training shapes: held to
+    gru_direction_backward_plain (from the forward kernel's output) and to
+    autograd through gru_direction_plain (the kernel given that loop's own
+    output), then timed.  Returns (the largest relative and absolute
+    differences, timings by (H, B))."""
+    rng = np.random.default_rng(3)
+    worst_rel, worst_abs, timings = 0.0, 0.0, {}
+    for H in (128, 192):
+        bound = H ** -0.5
+        w = torch.from_numpy(rng.uniform(-bound, bound, (H, 3 * H)).astype(np.float32)).to(dev)
+        b = torch.from_numpy(rng.uniform(-bound, bound, 3 * H).astype(np.float32)).to(dev)
+        for B in (800, 256):
+            xg = torch.from_numpy(rng.normal(size=(T, B, 3 * H)).astype(np.float32)).to(dev)
+            gout = torch.from_numpy(rng.normal(size=(T, B, H)).astype(np.float32)).to(dev)
+            for reverse in (False, True):
+                out = gru.gru_direction(xg, w, b, reverse=reverse)
+                got = gru.gru_direction_backward(xg, w, b, out, gout, reverse)
+                want = gru.gru_direction_backward_plain(xg, w, b, out, gout, reverse)
+                leaves = [t.clone().requires_grad_(True) for t in (xg, w, b)]
+                plain_out = gru.gru_direction_plain(*leaves, reverse=reverse)
+                auto = torch.autograd.grad(plain_out, leaves, gout)
+                got_auto = gru.gru_direction_backward(xg, w, b, plain_out.detach(), gout,
+                                                      reverse)
+                torch.cuda.synchronize()
+                rel = {n: (_rel(g, r), _rel(ga, ra)) for n, g, r, ga, ra in
+                       zip(GRADS, got, want, got_auto, auto)}
+                worst_abs = max([worst_abs] + [float((g - r).abs().max())
+                                               for g, r in zip(got, want)])
+                worst_rel = max([worst_rel] + [max(v) for v in rel.values()])
+                log(f"[backward] H={H} B={B} reverse={reverse} max|d|/max|ref| vs plain, vs "
+                    f"autograd: " + ", ".join(f"{n} {a:.2e} {c:.2e}" for n, (a, c) in rel.items()))
+                if max(max(v) for v in rel.values()) > BWD_TOL or \
+                        not all(torch.isfinite(g).all() for g in got):
+                    raise AssertionError(f"backward kernel disagrees at H={H} B={B} "
+                                         f"reverse={reverse}: {rel}")
+            in_size = 34 if H == 128 else 256    # gru1 / gru2 layer inputs
+            lib = torch.nn.GRU(in_size, H).to(dev)
+            x_in = torch.randn(T, B, in_size, device=dev, requires_grad=True)
+            lib_out, _ = lib(x_in)
+            lib_leaves = [x_in, *lib.parameters()]
+            out = gru.gru_direction(xg, w, b)
+            t = dict(
+                kernel_ms=cold_ms(lambda: gru.gru_direction_backward_kernel(xg, w, b, out, gout)),
+                wrapper_ms=cold_ms(lambda: gru.gru_direction_backward(xg, w, b, out, gout)),
+                plain_ms=cuda_ms(lambda: gru.gru_direction_backward_plain(xg, w, b, out, gout), 5),
+                library_ms=cuda_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, gout,
+                                                               retain_graph=True), 10),
+            )
+            t.update(gru_bwd_bound_ms(B, H))
+            timings[H, B] = t
+            log(f"[backward] timing T={T} B={B} H={H}: " + json.dumps(t))
+    return dict(max_rel_err=worst_rel, max_abs_err=worst_abs), timings
 
 
 def _flagship(mode, dev):
@@ -761,19 +856,25 @@ def phase_replicas(dev):
     return out
 
 
-def _timed_steps(tr, batch, gen, steps=20, warmup=3):
+def _one_step(tr, batch, gen, use_kernel):
+    tr.loss(*batch, generator=gen, use_kernel=use_kernel).backward()
+    tr.apply_gradients()
+
+
+def _timed_steps(tr, batch, gen, use_kernel=True, steps=20, warmup=3):
     """Median ms of each part of a training step over ``steps`` steps
     (CUDA events), the host wall per step, and the peak device memory.
-    ``gen``: the dropout generator."""
+    ``gen``: the dropout generator; ``use_kernel=False``: the BiGRU through
+    the plain loop under autograd."""
     for _ in range(warmup):
-        tr.step(*batch, generator=gen)
+        _one_step(tr, batch, gen, use_kernel)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     events = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(steps)]
     t0 = time.perf_counter()
     for ev in events:
         ev[0].record()
-        loss = tr.loss(*batch, generator=gen)
+        loss = tr.loss(*batch, generator=gen, use_kernel=use_kernel)
         ev[1].record()
         loss.backward()
         ev[2].record()
@@ -789,7 +890,7 @@ def _timed_steps(tr, batch, gen, steps=20, warmup=3):
     return out
 
 
-def _device_busy(tr, batch, gen, wall_ms, steps=5):
+def _device_busy(tr, batch, gen, wall_ms, use_kernel=True, steps=5):
     """torch.profiler over ``steps`` training steps: the card's kernel time
     a step over ``wall_ms``, the host wall of one step timed without the
     profiler (its CPU-activity tracing stretches the wall it traces), the
@@ -802,7 +903,7 @@ def _device_busy(tr, batch, gen, wall_ms, steps=5):
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            tr.step(*batch, generator=gen)
+            _one_step(tr, batch, gen, use_kernel)
         torch.cuda.synchronize()
     profiled_ms = (time.perf_counter() - t0) * 1e3 / steps
     # device-side events, less the GPU ranges of user annotations (such as
@@ -824,22 +925,31 @@ def phase_train(card, ds):
     (``train``'s calibration forwards and (d)'s, counted from 0 before (c))
     and those of the calling run (e), counted from 0 before it."""
     from clairs_to_tpu_torch.__main__ import SUBMODULES
-    from clairs_to_tpu_torch.bench.grad_check import compare, step_grads, train_batch
+    from clairs_to_tpu_torch.bench.grad_check import compare, step_grads, to_float64, train_batch
     from clairs_to_tpu_torch.models.checkpoint import load_checkpoint
     from clairs_to_tpu_torch.ops import gru
     from clairs_to_tpu_torch.train import DualTrainer, TrainConfig
 
     res = {}
-    # (a) one step, card against CPU, from the same weights
+    # (a) one step, card against CPU, from the same weights; the card's step
+    # against the same step through the plain loop on the card and against
+    # a float64 step on the CPU
     tc = TrainConfig(dropout_rate=0.0)
     batch, (x, x_neg, cov) = train_batch(tc.batch_size, 5, "cuda")
     card_tr = DualTrainer("snv", tc, device="cuda")
+    plain_tr = DualTrainer("snv", tc, device="cuda")
     cpu_tr = DualTrainer("snv", tc, device="cpu")
-    for net in ("aff", "neg"):
-        cpu_tr.models[net].load_state_dict(card_tr.models[net].state_dict())
+    f64_tr = DualTrainer("snv", tc, device="cpu")
+    for tr in (plain_tr, cpu_tr, f64_tr):
+        for net in ("aff", "neg"):
+            tr.models[net].load_state_dict(card_tr.models[net].state_dict())
+    to_float64(f64_tr)
+    gru.gru_direction.launches = gru.gru_direction_backward.launches = 0
     t0 = time.time()
     got = step_grads(card_tr, batch)
     t1 = time.time()
+    res["step_launches"] = dict(gru_direction=gru.gru_direction.launches,
+                                gru_direction_backward=gru.gru_direction_backward.launches)
     want = step_grads(cpu_tr, [t.cpu() for t in batch])
     cpu_s = time.time() - t1
     gap = compare(got, want)
@@ -849,23 +959,57 @@ def phase_train(card, ds):
         f"{gap['worst_leaf']} (|g| {gap['worst_leaf_norm']:.3e}) rel {gap['worst_leaf_rel']:.2e}; "
         f"largest share of the norm gap {gap['norm_gap_leaf']} ({gap['norm_gap_share']:.2f}); "
         f"the card's step took {t1 - t0:.1f} s (first, with cuDNN's planning), the CPU's "
-        f"{cpu_s:.1f} s")
+        f"{cpu_s:.1f} s; GRU launches in the card's step {json.dumps(res['step_launches'])}")
     if max(gap["loss_rel"], gap["norm_rel"], gap["worst_leaf_rel"]) > TRAIN_TOL:
         raise AssertionError(f"train: the card's step disagrees with the CPU's ({gap})")
+    if res["step_launches"] != dict(gru_direction=4, gru_direction_backward=4):
+        raise AssertionError(f"train: a step launched the GRU kernels {res['step_launches']} "
+                             f"times, not 4 and 4")
     res.update(gap, loss=got[0], grad_norm=got[1])
-    # (b) the step's time and memory, dropout on as in training
-    timed_tr = DualTrainer("snv", TrainConfig(), device="cuda")
+    plain = step_grads(plain_tr, batch, use_kernel=False)
+    kp = compare(got, plain)
+    log(f"[train] kernels vs plain loop under autograd, same batch and weights, on the card: "
+        + json.dumps(kp))
+    if kp["loss_rel"] > KERNEL_STEP_LOSS_TOL or kp["worst_leaf_rel"] > KERNEL_STEP_GRAD_TOL:
+        raise AssertionError(f"train: the kernel step disagrees with the plain-loop step ({kp})")
+    res["vs_plain_loop"] = kp
+    t0 = time.time()
+    f64 = step_grads(f64_tr, [t.cpu().double() if t.is_floating_point() else t.cpu()
+                              for t in batch])
+    res["vs_float64"] = {name: compare(s, f64) for name, s in
+                         (("cuda_kernels", got), ("cuda_plain_loop", plain), ("cpu", want))}
+    log(f"[train] against a float64 CPU step ({time.time() - t0:.1f} s): "
+        + json.dumps(res["vs_float64"]))
+    ref = res["vs_float64"]["cuda_kernels"]
+    if max(ref["loss_rel"], ref["norm_rel"], ref["worst_leaf_rel"]) > TRAIN_TOL:
+        raise AssertionError(f"train: the card's step strays from the float64 step ({ref})")
+    # (b) the step's time and memory, dropout on as in training, in turns
+    # with the plain-loop step: plain, kernels, kernels, plain; two
+    # trainers on the card, as in the runs before the backward kernel
+    del card_tr, plain_tr, cpu_tr, f64_tr
+    timed = {True: DualTrainer("snv", TrainConfig(), device="cuda"),
+             False: DualTrainer("snv", TrainConfig(), device="cuda")}
     gen = torch.Generator(device="cuda").manual_seed(1)
-    res["step"] = _timed_steps(timed_tr, batch, gen)
-    log(f"[train] {card}: flagship SNV step at {tc.batch_size} rows (median of 20, CUDA "
-        f"events): " + json.dumps(res["step"]))
-    res["profile"] = _device_busy(timed_tr, batch, gen, res["step"]["wall_ms"])
-    log(f"[train] torch.profiler over 5 steps: " + json.dumps(res["profile"]))
-    del card_tr, cpu_tr, timed_tr
+    turns = [(k, _timed_steps(timed[k], batch, gen, use_kernel=k))
+             for k in (False, True, True, False)]
+    for k, step in turns:
+        log(f"[train] {card}: flagship SNV step at {tc.batch_size} rows through "
+            f"{'the kernels' if k else 'the plain loop'} (median of 20, CUDA events): "
+            + json.dumps(step))
+    res["step_turns"] = [dict(kernels=k, **step) for k, step in turns]
+    res["step"] = turns[1][1]
+    res["plain_loop_step"] = turns[0][1]
+    res["profile"] = _device_busy(timed[True], batch, gen, res["step"]["wall_ms"])
+    log(f"[train] torch.profiler over 5 kernel steps: " + json.dumps(res["profile"]))
+    res["plain_loop_profile"] = _device_busy(timed[False], batch, gen,
+                                             res["plain_loop_step"]["wall_ms"], use_kernel=False)
+    log(f"[train] torch.profiler over 5 plain-loop steps: "
+        + json.dumps(res["plain_loop_profile"]))
+    del timed
     # (c) the subcommand, both modes, into run's --model_dir layout
     model_dir = os.path.join(WORK, "trained")
     res["cli_wall_s"] = {}
-    gru.gru_direction.launches = 0
+    gru.gru_direction.launches = gru.gru_direction_backward.launches = 0
     for mode, sub in (("snv", ""), ("indel", "indel")):
         t0 = time.time()
         rc = SUBMODULES["train"](["--output_dir", os.path.join(model_dir, sub), "--mode", mode,
@@ -882,18 +1026,25 @@ def phase_train(card, ds):
         load_checkpoint(os.path.join(model_dir, name), tr.models[net])
     kern = tr.predict_probs(x, rescale_cov=cov, x_neg=x_neg)
     res["launches"] = gru.gru_direction.launches
+    res["bwd_launches"] = gru.gru_direction_backward.launches
     plain = tr.predict_probs(x, rescale_cov=cov, x_neg=x_neg, use_kernel=False)
     err = max(float(np.abs(a - b).max()) for a, b in zip(kern, plain))
     log(f"[train] predict_probs on {len(x)} rows: kernel vs plain GRU max |p diff| {err:.3e}")
     if err > ENGINE_TOL or not all(np.isfinite(a).all() for a in kern):
         raise AssertionError(f"train: predict_probs with the kernel disagrees ({err:.3e})")
     res["predict_max_abs_err"] = err
-    # 4 launches a NEG forward (two bidirectional layers), one forward per
-    # 512 rows: train's calibration forwards 3000 rows a mode, (d) 800
+    # 4 launches of each kernel a training step (two bidirectional layers),
+    # 1280 // 256 steps an epoch, 2 epochs, 2 modes; 4 forward launches a NEG
+    # forward, one forward per 512 rows: train's calibration forwards 3000
+    # rows a mode, (d) 800
+    steps = 2 * 2 * (1280 // 256)
     batches = 2 * -(-3000 // 512) + -(-len(x) // 512)
-    log(f"[train] launches_by_path[\"train\"] = {res['launches']} (expected {4 * batches})")
-    if res["launches"] != 4 * batches:
-        raise AssertionError(f"train: {res['launches']} GRU launches, expected {4 * batches}")
+    want = (4 * (steps + batches), 4 * steps)
+    log(f"[train] launches_by_path[\"train\"] = {res['launches']} forward, "
+        f"{res['bwd_launches']} backward (expected {want[0]}, {want[1]})")
+    if (res["launches"], res["bwd_launches"]) != want:
+        raise AssertionError(f"train: {res['launches']} and {res['bwd_launches']} GRU "
+                             f"launches, expected {want}")
     # (e) call with the trained networks
     out_dir = os.path.join(WORK, "trained_run")
     gru.gru_direction.launches = 0
@@ -1061,6 +1212,7 @@ def main(argv=None):
     phase_build(gru)
     prev = load_prev(prev_build) if prev_build else None
     max_err, timings = phase_kernel(gru, dev, prev)
+    bwd_err, bwd_timings = phase_backward(gru, dev)
     engine = phase_engine(dev)
     e2e = phase_end_to_end(card, GENOME_LEN, ILMN_GENOME_LEN)
     e2e["replicas"] = phase_replicas(dev)
@@ -1084,8 +1236,23 @@ def main(argv=None):
     )]
     if "prev_ms" in t:
         kernels[0]["prev_ms"] = t["prev_ms"]
-    if min(kernels[0]["launches_by_path"].values()) <= 0:
-        raise AssertionError(f"a path never launched the kernel: {kernels[0]['launches_by_path']}")
+    tb = bwd_timings[192, 800]
+    kernels.append(dict(
+        name="gru_direction_backward", route="cuda", source="clairs_to_tpu_torch/csrc/gru_bwd.cu",
+        replaces="backward of clairs_to_tpu/ops/gru_pallas.py:61 (JAX differentiates "
+                 "models/bigru.py:41's lax.scan)",
+        launches=e2e["train"]["bwd_launches"],
+        launches_by_path=dict(train=e2e["train"]["bwd_launches"],
+                              train_step=e2e["train"]["step_launches"]["gru_direction_backward"]),
+        max_abs_err=bwd_err["max_abs_err"], max_rel_err=bwd_err["max_rel_err"],
+        ms=tb["kernel_ms"], wrapper_ms=tb["wrapper_ms"], plain_ms=tb["plain_ms"],
+        bound_ms=tb["bound_ms"], bound_by=tb["bound_by"], bound_rate=tb["bound_rate"],
+        library_ms=tb["library_ms"], shape=f"T={T} B=800 H=192",
+        other_shapes={f"H={h} B={b}": v for (h, b), v in bwd_timings.items() if (h, b) != (192, 800)},
+    ))
+    for k in kernels:
+        if min(k["launches_by_path"].values()) <= 0:
+            raise AssertionError(f"a path never launched {k['name']}: {k['launches_by_path']}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -44,10 +44,11 @@ def to_float64(tr):
     return tr
 
 
-def step_grads(tr, batch):
+def step_grads(tr, batch, use_kernel=True):
     """One step of ``tr`` on ``batch``: (loss, global norm before clipping,
-    {leaf name: its gradient as a CPU float64 tensor})."""
-    loss = tr.loss(*batch)
+    {leaf name: its gradient as a CPU float64 tensor}).  ``use_kernel``:
+    as ``DualTrainer.loss`` takes it."""
+    loss = tr.loss(*batch, use_kernel=use_kernel)
     loss.backward()
     # a copy: clipping scales the gradients in place
     grads = {k: t.grad.detach().to("cpu", torch.float64, copy=True)

@@ -7,8 +7,9 @@ training-time fc dropout at the same three sites.  The gate
 order is r, z, n and the reset gate multiplies the *biased* hidden branch:
 n = tanh(x_n + b_in + r * (h W_hn + b_hn)).  The recurrence runs in
 ops/gru.py: the CUDA kernel for CUDA tensors, the plain loop for CPU ones.
-The kernel has no backward pass: training runs the plain loop under
-autograd, as the JAX package trains through its plain ``lax.scan``.
+Training runs the same path: its gradient is the backward kernel of
+ops/gru.py::GRUDirection on CUDA tensors and an explicit loop on CPU ones,
+where the JAX package differentiates its ``lax.scan``.
 """
 
 from dataclasses import dataclass
@@ -65,8 +66,8 @@ class BiGRU(nn.Module):
 
     def forward(self, x, use_kernel=None, dropout_rate=0.0, generator=None):
         """``use_kernel`` None or True: ops/gru.py's ``gru_direction`` (the
-        kernel on CUDA tensors, the plain loop on CPU ones); False: the plain
-        loop everywhere.  ``dropout_rate``/``generator``: training-time fc
+        kernels on CUDA tensors, the plain loops on CPU ones); False: the
+        plain loop everywhere, under autograd when training.  ``dropout_rate``/``generator``: training-time fc
         dropout; the inference forward leaves them at 0/None."""
         use_kernel = True if use_kernel is None else use_kernel
         out = bigru_layer(x, _as_dict(self.gru1), self.config.hidden1, use_kernel)

@@ -1,14 +1,20 @@
-"""The BiGRU recurrence: a hand-written CUDA kernel and its plain version.
+"""The BiGRU recurrence: hand-written CUDA kernels and their plain versions.
 
 Counterpart of clairs_to_tpu/ops/gru_pallas.py.  ``gru_direction`` runs one
 GRU direction over T steps with the kernel in ``csrc/gru.cu`` for CUDA
 tensors, and with ``gru_direction_plain`` (a loop over T, the counterpart
-of clairs_to_tpu/models/bigru.py::_gru_direction) for CPU tensors.  On a
-CUDA tensor it launches the kernel or raises; it never falls back.
+of clairs_to_tpu/models/bigru.py::_gru_direction) for CPU tensors.  Asked
+for a gradient it runs through ``GRUDirection``, whose backward is the
+kernel in ``csrc/gru_bwd.cu`` (``gru_direction_backward``) for CUDA tensors
+and the explicit loop ``gru_direction_backward_plain`` for CPU ones: the
+JAX package trains through the same function with XLA's gradient of its
+``lax.scan``.  On a CUDA tensor each wrapper launches its kernel or raises;
+it never falls back.
 
-The kernel is compiled by ``nvcc`` for sm_90a into ``build/kernels/`` at the
-repository root on first use and loaded with ctypes.  It reads W_hh^T in the
-chunked layout of ``pack_w_hh``, which the wrapper builds for each launch.
+The kernels are compiled by ``nvcc`` for sm_90a into ``build/kernels/`` at
+the repository root on first use and loaded with ctypes.  The forward reads
+W_hh^T in the chunked layout of ``pack_w_hh``, which the wrapper builds for
+each launch.
 """
 
 import ctypes
@@ -18,16 +24,27 @@ import subprocess
 import threading
 
 import torch
+from torch.autograd.function import once_differentiable
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "gru.cu")
+SOURCE_BWD = os.path.join(_PKG, "csrc", "gru_bwd.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 _SO = os.path.join(BUILD_DIR, "libgru.so")
-MAX_HIDDEN = 256   # csrc/gru.cu: the largest H its shared memory holds
+_SO_BWD = os.path.join(BUILD_DIR, "libgru_bwd.so")
+MAX_HIDDEN = 256   # csrc/gru.cu and csrc/gru_bwd.cu: the largest H they take
 KC, GROUP = 16, 64  # csrc/gru.cu: W rows per chunk, hidden units per column group
 
-_lib = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# library -> (its entry point, the entry point's argument types)
+_ENTRY = {"gru": ("gru_direction_f32", [_P] * 4 + [_I] * 4 + [_P]),
+          "gru_bwd": ("gru_direction_backward_f32", [_P] * 8 + [_I] * 4 + [_P])}
+_libs = {}   # library -> its loaded entry point
 _lock = threading.Lock()
+
+
+def _paths(name):
+    return (SOURCE, _SO) if name == "gru" else (SOURCE_BWD, _SO_BWD)
 
 
 def _nvcc():
@@ -35,37 +52,54 @@ def _nvcc():
                  os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the GRU kernel is built from csrc/gru.cu "
-                       "with the CUDA toolkit (set CUDA_HOME)")
+    raise RuntimeError("nvcc not found: the GRU kernels are built from csrc/gru.cu and "
+                       "csrc/gru_bwd.cu with the CUDA toolkit (set CUDA_HOME)")
 
 
-def build(verbose=False):
-    """Compile (when the source is newer than the library) and load the kernel.
+def build(names=("gru", "gru_bwd"), verbose=False):
+    """Compile (each library whose source is newer than it, one nvcc each,
+    all at once) and load the kernels named: "gru" (the forward) and
+    "gru_bwd" (the backward).
 
-    Returns the compiler's diagnostics (``-Xptxas -v`` when ``verbose``) or
-    "" when the library was already current."""
-    global _lib
+    Returns the compiler's diagnostics (``-Xptxas -v`` when ``verbose``),
+    or "" when every library was already current.  Raises if one fails."""
     with _lock:
-        log = ""
-        if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(SOURCE):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{_SO}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                   "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, SOURCE]
-            if verbose:
-                cmd[1:1] = ["-Xptxas", "-v"]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+        procs = {}
+        for name in names:
+            src, so = _paths(name)
+            if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = f"{so}.{os.getpid()}.tmp"
+                cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                       "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, src]
+                if verbose:
+                    cmd[1:1] = ["-Xptxas", "-v"]
+                procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                     stderr=subprocess.PIPE, text=True))
+        log, failed = "", []
+        for name, (tmp, proc) in procs.items():
+            out, err = proc.communicate()
+            src, so = _paths(name)
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-            os.replace(tmp, _SO)
-            log = proc.stdout + proc.stderr
-        if _lib is None:
-            lib = ctypes.CDLL(_SO)
-            lib.gru_direction_f32.restype = ctypes.c_int
-            lib.gru_direction_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
-                + [ctypes.c_void_p]
-            _lib = lib
+                failed.append(f"nvcc failed on {os.path.basename(src)} "
+                              f"({proc.returncode}):\n{err}")
+                continue
+            os.replace(tmp, so)
+            log += f"{os.path.basename(src)}:\n{out}{err}"
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name in names:
+            if name not in _libs:
+                fn = getattr(ctypes.CDLL(_paths(name)[1]), _ENTRY[name][0])
+                fn.restype, fn.argtypes = ctypes.c_int, _ENTRY[name][1]
+                _libs[name] = fn
         return log
+
+
+def _entry(name):
+    if name not in _libs:
+        build((name,))
+    return _libs[name]
 
 
 def gru_direction_plain(x_gates, w_hh_t, b_hh, reverse=False):
@@ -124,32 +158,37 @@ def pack_w_hh(w_hh_t):
     return parts.reshape(n_groups, hk // KC, 2, 2, KC // 8, 3, 4, 2, 8, 4)
 
 
-def gru_direction(x_gates, w_hh_t, b_hh, reverse=False):
-    """One GRU direction: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  Same arguments as ``gru_direction_plain``."""
+def _check(name, tensors, shapes):
+    """Raise unless ``tensors`` are contiguous float32 on one CUDA device with
+    the (T, B, 3H) / (H, 3H) / (3H,) / (T, B, H) ``shapes`` given by
+    "x", "w", "b", "h"; returns (T, B, H)."""
+    if not all(t.is_cuda and t.device == tensors[0].device for t in tensors):
+        raise ValueError(f"{name}: all tensors must be on one CUDA device")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{name}: float32 tensors only")
+    x_gates, w_hh_t = tensors[0], tensors[1]
+    if x_gates.dim() != 3 or w_hh_t.dim() != 2:
+        raise ValueError(f"{name}: shapes (T, B, 3H), (H, 3H), (3H,)")
+    T, B, H3 = x_gates.shape
+    H = w_hh_t.shape[0]
+    want = {"x": (T, B, 3 * H), "w": (H, 3 * H), "b": (3 * H,), "h": (T, B, H)}
+    if any(tuple(t.shape) != want[k] for t, k in zip(tensors, shapes)):
+        raise ValueError(f"{name}: shapes {[tuple(t.shape) for t in tensors]} do not agree")
+    if not 1 <= H <= MAX_HIDDEN:
+        raise ValueError(f"{name}: hidden {H} outside 1..{MAX_HIDDEN}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous")
+    return T, B, H
+
+
+def _forward(x_gates, w_hh_t, b_hh, reverse):
+    """The forward without autograd: the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
     tensors = (x_gates, w_hh_t, b_hh)
     if all(t.device.type == "cpu" for t in tensors):
         return gru_direction_plain(x_gates, w_hh_t, b_hh, reverse)
-    if not all(t.is_cuda and t.device == x_gates.device for t in tensors):
-        raise ValueError("gru_direction: all tensors must be on one CUDA device")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("gru_direction: float32 tensors only")
-    if x_gates.dim() != 3 or w_hh_t.dim() != 2 or b_hh.dim() != 1:
-        raise ValueError("gru_direction: shapes (T, B, 3H), (H, 3H), (3H,)")
-    T, B, H3 = x_gates.shape
-    H = w_hh_t.shape[0]
-    if w_hh_t.shape[1] != H3 or H3 != 3 * H or b_hh.shape[0] != H3:
-        raise ValueError(f"gru_direction: shapes {tuple(x_gates.shape)}, "
-                         f"{tuple(w_hh_t.shape)}, {tuple(b_hh.shape)} do not agree")
-    if not 1 <= H <= MAX_HIDDEN:
-        raise ValueError(f"gru_direction: hidden {H} outside 1..{MAX_HIDDEN}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("gru_direction: tensors must be contiguous")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError("gru_direction: the kernel has no backward pass; train through "
-                           "gru_direction_plain (use_kernel=False)")
-    if _lib is None:
-        build()
+    T, B, H = _check("gru_direction", tensors, "xwb")
+    fn = _entry("gru")
     out = torch.empty((T, B, H), dtype=torch.float32, device=x_gates.device)
     w_packed = pack_w_hh(w_hh_t)
     # the C entry point sets the kernel's attribute and launches on the CUDA
@@ -157,8 +196,8 @@ def gru_direction(x_gates, w_hh_t, b_hh, reverse=False):
     # several engine replicas is not the thread's default
     with torch.cuda.device(x_gates.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib.gru_direction_f32(x_gates.data_ptr(), w_packed.data_ptr(), b_hh.data_ptr(),
-                                     out.data_ptr(), T, B, H, int(reverse), stream)
+        err = fn(x_gates.data_ptr(), w_packed.data_ptr(), b_hh.data_ptr(), out.data_ptr(),
+                 T, B, H, int(reverse), stream)
     if err != 0:
         raise RuntimeError(f"gru_direction kernel launch failed: cudaError {err}")
     with _count_lock:   # a server launches from several threads
@@ -166,8 +205,130 @@ def gru_direction(x_gates, w_hh_t, b_hh, reverse=False):
     return out
 
 
+def gru_direction(x_gates, w_hh_t, b_hh, reverse=False):
+    """One GRU direction: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors.  Same arguments as ``gru_direction_plain``.
+    When grad mode is on and an input requires grad it runs through
+    ``GRUDirection``, whose backward is ``gru_direction_backward``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x_gates, w_hh_t, b_hh)):
+        return GRUDirection.apply(x_gates, w_hh_t, b_hh, reverse)
+    return _forward(x_gates, w_hh_t, b_hh, reverse)
+
+
 gru_direction.launches = 0
 _count_lock = threading.Lock()
+
+
+def _weight_grads(out, grad_hg, reverse):
+    """(dW_hh^T, db_hh) from the forward's ``out`` and grad_hg (T, B, 3H):
+    dW_hh^T = sum_t h_prev[t]^T grad_hg[t], where h_prev is out one step
+    back in the direction's order and 0 at its first step (so that step
+    adds nothing), and db_hh = sum grad_hg."""
+    H, H3 = out.shape[-1], grad_hg.shape[-1]
+    prev, grad = (out[1:], grad_hg[:-1]) if reverse else (out[:-1], grad_hg[1:])
+    grad_w = torch.matmul(prev.reshape(-1, H).t(), grad.reshape(-1, H3))
+    return grad_w, grad_hg.sum(dim=(0, 1))
+
+
+@torch.no_grad()
+def _bptt_plain(x_gates, w_hh_t, b_hh, out, grad_out, reverse):
+    """The plain version of the backward kernel: (grad_x_gates, grad_hg)."""
+    T, B, _ = x_gates.shape
+    H = w_hh_t.shape[0]
+    grad_x = torch.empty_like(x_gates)
+    grad_hg = torch.empty_like(x_gates)
+    zero = x_gates.new_zeros((B, H))
+    dh = zero
+    for t in (range(T) if reverse else range(T - 1, -1, -1)):
+        tp = t + 1 if reverse else t - 1
+        h_prev = out[tp] if 0 <= tp < T else zero
+        hg = torch.matmul(h_prev, w_hh_t) + b_hh
+        xr, xz, xn = x_gates[t].split(H, dim=-1)
+        hr, hz, hn = hg.split(H, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        dh = dh + grad_out[t]
+        dpre_n = dh * (1.0 - z) * (1.0 - n * n)
+        dpre_z = dh * (h_prev - n) * (z * (1.0 - z))
+        dpre_r = dpre_n * hn * (r * (1.0 - r))
+        grad_x[t] = torch.cat([dpre_r, dpre_z, dpre_n], dim=-1)
+        grad_hg[t] = torch.cat([dpre_r, dpre_z, dpre_n * r], dim=-1)
+        dh = dh * z + torch.matmul(grad_hg[t], w_hh_t.t())
+    return grad_x, grad_hg
+
+
+def gru_direction_backward_plain(x_gates, w_hh_t, b_hh, out, grad_out, reverse=False):
+    """The gradients of ``gru_direction_plain`` by an explicit loop over T
+    against the forward's order (back-propagation through time, no autograd).
+
+    ``out`` is the forward's output and ``grad_out`` the gradient on it,
+    both (T, B, H).  Returns (grad_x_gates (T, B, 3H), grad_w_hh_t (H, 3H),
+    grad_b_hh (3H,)).  Each step rebuilds the gates from the h before it,
+    then dh -> (dpre_r, dpre_z, dpre_n) -> dh of the step before."""
+    grad_x, grad_hg = _bptt_plain(x_gates, w_hh_t, b_hh, out, grad_out, reverse)
+    return (grad_x, *_weight_grads(out, grad_hg, reverse))
+
+
+def gru_direction_backward_kernel(x_gates, w_hh_t, b_hh, out, grad_out, reverse=False):
+    """The backward kernel alone: (grad_x_gates, grad_hg), each (T, B, 3H),
+    where grad_hg is the gradient on h_prev . W_hh^T + b_hh; its plain
+    version for CPU tensors.  ``gru_direction_backward`` turns grad_hg into
+    the weight gradients."""
+    tensors = (x_gates, w_hh_t, b_hh, out, grad_out)
+    if all(t.device.type == "cpu" for t in tensors):
+        return _bptt_plain(*tensors, reverse)
+    T, B, H = _check("gru_direction_backward", tensors, "xwbhh")
+    fn = _entry("gru_bwd")
+    grad_x = torch.empty_like(x_gates)
+    grad_hg = torch.empty_like(x_gates)
+    w_hh = w_hh_t.t().contiguous()
+    with torch.cuda.device(x_gates.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x_gates.data_ptr(), w_hh_t.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
+                 out.data_ptr(), grad_out.data_ptr(), grad_x.data_ptr(), grad_hg.data_ptr(),
+                 T, B, H, int(reverse), stream)
+    if err != 0:
+        raise RuntimeError(f"gru_direction_backward kernel launch failed: cudaError {err}")
+    with _count_lock:
+        gru_direction_backward.launches += 1
+    return grad_x, grad_hg
+
+
+def gru_direction_backward(x_gates, w_hh_t, b_hh, out, grad_out, reverse=False):
+    """The gradients of ``gru_direction``: the CUDA kernel, then dW_hh^T and
+    db_hh as one matmul and one sum, for CUDA tensors; the plain version for
+    CPU tensors.  Same arguments and results as
+    ``gru_direction_backward_plain``."""
+    grad_x, grad_hg = gru_direction_backward_kernel(x_gates, w_hh_t, b_hh, out, grad_out,
+                                                    reverse)
+    return (grad_x, *_weight_grads(out, grad_hg, reverse))
+
+
+gru_direction_backward.launches = 0
+
+
+class GRUDirection(torch.autograd.Function):
+    """``gru_direction`` with its gradient.  Forward: the forward kernel on
+    CUDA tensors, ``gru_direction_plain`` on CPU ones; it keeps the inputs
+    and the output.  Backward: ``gru_direction_backward`` (the backward
+    kernel on CUDA tensors, ``gru_direction_backward_plain`` on CPU ones).
+    A kernel that does not build or launch raises: there is no fallback."""
+
+    @staticmethod
+    def forward(ctx, x_gates, w_hh_t, b_hh, reverse):
+        out = _forward(x_gates, w_hh_t, b_hh, reverse)
+        ctx.save_for_backward(x_gates, w_hh_t, b_hh, out)
+        ctx.reverse = reverse
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        x_gates, w_hh_t, b_hh, out = ctx.saved_tensors
+        grads = gru_direction_backward(x_gates, w_hh_t, b_hh, out, grad_out.contiguous(),
+                                       ctx.reverse)
+        return (*grads, None)
 
 
 def bigru_layer(x, p, hidden, use_kernel=True):
@@ -176,7 +337,8 @@ def bigru_layer(x, p, hidden, use_kernel=True):
     Counterpart of gru_pallas.bigru_layer_pallas.  ``p`` maps "ih", "hh",
     "ih_reverse", "hh_reverse" to {"weight", "bias"} with torch.nn.GRU
     layouts.  The input-gate GEMM is a plain matmul; the recurrence runs
-    through ``gru_direction`` (``use_kernel=False``: the plain version).
+    through ``gru_direction``, and its gradient through the backward kernel
+    (``use_kernel=False``: the plain version, under autograd when training).
     """
     direction = gru_direction if use_kernel else gru_direction_plain
     xt = x.transpose(0, 1)   # (T, B, in)

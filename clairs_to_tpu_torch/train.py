@@ -20,9 +20,10 @@ What the JAX step does, and how it is matched here:
   (``clip_by_global_norm`` below; torch's ``clip_grad_norm_`` differs);
 * ``optax.adamw(lr, weight_decay=wd)`` is b1 0.9, b2 0.999, eps 1e-8 and
   decays every leaf: ``torch.optim.AdamW`` with one group and ``wd`` given;
-* the NEG network trains through the plain GRU recurrence under autograd,
-  as the JAX step trains through ``lax.scan`` (the CUDA kernel has no
-  backward); inference (``predict_probs``) runs the kernel on CUDA;
+* the NEG network's recurrence trains through ops/gru.py::GRUDirection:
+  on CUDA the forward kernel and a hand-written backward kernel, on the CPU
+  the plain loop and an explicit backward loop; the JAX step trains
+  through XLA's gradient of ``lax.scan``, the same function;
 * batches come from ``np.random.default_rng(seed)`` in the JAX order; the
   dropout masks come from a ``torch.Generator``, which cannot reproduce
   ``jax.random``, so the two agree step for step only at dropout 0.
@@ -127,13 +128,16 @@ class DualTrainer:
         if self.device.type == "cuda":
             set_matmul_precision("highest")
 
-    def loss(self, x, x_neg, aff_labels, neg_labels, generator=None):
+    def loss(self, x, x_neg, aff_labels, neg_labels, generator=None, use_kernel=True):
         """The summed focal loss of both networks on one batch (device
-        tensors), with the trainer's dropout drawn from ``generator``."""
+        tensors), with the trainer's dropout drawn from ``generator``.
+        ``use_kernel=False`` runs the BiGRU's plain loop under autograd
+        instead of the kernels: the yardstick the kernel step is held to."""
         self._set_precision()
         dr = self.tc.dropout_rate
         la = self.models["aff"](x, dropout_rate=dr, generator=generator)
-        ln = self.models["neg"](x_neg, use_kernel=False, dropout_rate=dr, generator=generator)
+        ln = self.models["neg"](x_neg, use_kernel=use_kernel, dropout_rate=dr,
+                                generator=generator)
         g = self.tc.focal_gamma
         return focal_ce(la, aff_labels, g) + focal_ce(ln, neg_labels, g)
 

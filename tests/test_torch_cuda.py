@@ -1,5 +1,6 @@
-"""The port's CUDA kernel on the card: ``gru_direction`` against its plain
-version, and the engine with the kernel against the engine without it.
+"""The port's CUDA kernels on the card: ``gru_direction`` and
+``gru_direction_backward`` against their plain versions, and training
+through them against training through the plain loop.
 
 Marked ``cuda``; each test skips where there is no GPU.  Run them on a
 machine with an H100 with
@@ -71,20 +72,89 @@ def test_kernel_rejects_bad_inputs(cuda):
         tgru.gru_direction(xg, w, b)
 
 
-def test_kernel_refuses_to_be_differentiated(cuda):
-    """The kernel has no backward pass: asked for a gradient it raises, so
-    training cannot silently lose the recurrence's gradients."""
+def _rel(got, want):
+    """max |got - want| / max |want|: the phase-2 measure of chip_smoke.py."""
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("H", [1, 16, 24, 40, 128, 192, 200, 256])
+@pytest.mark.parametrize("B", [1, 63, 65, 1000, 8191, 8192])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_backward_kernel_matches_plain(cuda, H, B, reverse):
+    """The backward kernel against ``gru_direction_backward_plain`` from the
+    forward kernel's output, over the forward's grid: every gradient within
+    1e-5 of the largest reference value."""
+    xg, w, b = _inputs(B, H, seed=H + B + 1, device=cuda)
+    out = tgru.gru_direction(xg, w, b, reverse=reverse)
+    gout = torch.randn(out.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(H))
+    before = tgru.gru_direction_backward.launches
+    got = tgru.gru_direction_backward(xg, w, b, out, gout, reverse=reverse)
+    torch.cuda.synchronize()
+    assert tgru.gru_direction_backward.launches == before + 1
+    want = tgru.gru_direction_backward_plain(xg, w, b, out, gout, reverse=reverse)
+    for name, g, r in zip(("grad_x_gates", "grad_w_hh_t", "grad_b_hh"), got, want):
+        assert g.shape == r.shape and torch.isfinite(g).all(), name
+        assert _rel(g, r) <= 1e-5, (name, _rel(g, r))
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_function_matches_autograd_through_the_plain_loop(cuda, reverse):
+    """``GRUDirection`` (the two kernels) against autograd through
+    ``gru_direction_plain`` on the card, at the flagship gru2 width."""
+    xg, w, b = _inputs(800, 192, seed=5, device=cuda)
+    gout = torch.randn(T, 800, 192, device=cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (xg, w, b)]
+    got = torch.autograd.grad(tgru.gru_direction(*leaves, reverse=reverse), leaves, gout)
+    plain = [t.clone().requires_grad_(True) for t in (xg, w, b)]
+    want = torch.autograd.grad(tgru.gru_direction_plain(*plain, reverse=reverse), plain, gout)
+    for g, r in zip(got, want):
+        assert _rel(g, r) <= 1e-5, _rel(g, r)
+
+
+def test_backward_kernel_is_deterministic(cuda):
+    xg, w, b = _inputs(8191, 192, seed=4, device=cuda)
+    out = tgru.gru_direction(xg, w, b)
+    gout = torch.randn_like(out)
+    first = tgru.gru_direction_backward_kernel(xg, w, b, out, gout)
+    second = tgru.gru_direction_backward_kernel(xg, w, b, out, gout)
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+def test_backward_kernel_rejects_bad_inputs(cuda):
     xg, w, b = _inputs(8, 16, seed=0, device=cuda)
-    w.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        tgru.gru_direction(xg, w, b)
-    with torch.no_grad():
-        tgru.gru_direction(xg, w, b)
+    out = tgru.gru_direction(xg, w, b)
+    with pytest.raises(ValueError):
+        tgru.gru_direction_backward(xg, w, b, out[:, :4], out)
+    with pytest.raises(ValueError):
+        tgru.gru_direction_backward(xg, w, b, out, out.transpose(0, 1).contiguous())
+    with pytest.raises(TypeError):
+        tgru.gru_direction_backward(xg, w, b, out, out.double())
+
+
+def test_unbuildable_backward_raises_in_training(cuda, tmp_path, monkeypatch):
+    """No fallback: with a backward source that does not compile, a training
+    step on the card raises instead of training through the plain loop."""
+    from clairs_to_tpu_torch.bench.demo import TINY_BIGRU, TINY_CVT
+    from clairs_to_tpu_torch.train import DualTrainer, TrainConfig
+
+    broken = tmp_path / "gru_bwd.cu"
+    broken.write_text(open(tgru.SOURCE_BWD).read() + "\nthis is not C++;\n")
+    monkeypatch.setattr(tgru, "SOURCE_BWD", str(broken))
+    monkeypatch.setattr(tgru, "_SO_BWD", str(tmp_path / "libgru_bwd.so"))
+    monkeypatch.delitem(tgru._libs, "gru_bwd", raising=False)
+    tgru.build(("gru",))
+    tr = DualTrainer("snv", TrainConfig(dropout_rate=0.0), TINY_CVT, TINY_BIGRU, device="cuda")
+    x = torch.zeros(16, 33, 34, device=cuda)
+    labels = torch.zeros(16, 4, dtype=torch.int64, device=cuda)
+    loss = tr.loss(x, x, labels, 1 - labels)
+    with pytest.raises(RuntimeError, match="nvcc failed on gru_bwd.cu"):
+        loss.backward()
+    assert "gru_bwd" not in tgru._libs
 
 
 def test_training_step_on_the_card_matches_the_cpu(cuda):
     """One step of the tiny pair from the same weights: the card's loss and
-    gradient norm against the CPU path's (the plain recurrence both ways)."""
+    gradient norm (the GRU kernels) against the CPU path's (the plain loops)."""
     from clairs_to_tpu_torch.bench.demo import TINY_BIGRU, TINY_CVT
     from clairs_to_tpu_torch.bench.synth import synthesize_batch
     from clairs_to_tpu_torch.train import DualTrainer, TrainConfig
@@ -102,3 +172,20 @@ def test_training_step_on_the_card_matches_the_cpu(cuda):
         loss.backward()
         got.append((loss.item(), tr.apply_gradients().item()))
     np.testing.assert_allclose(got[0], got[1], rtol=1e-4)
+
+
+def test_kernel_step_matches_the_plain_loop_step(cuda):
+    """One flagship-width step from the same weights through the kernels and
+    through the plain loop under autograd: the loss within 1e-6 and every
+    gradient leaf within 1e-5, relative."""
+    from clairs_to_tpu_torch.bench.grad_check import compare, step_grads, train_batch
+    from clairs_to_tpu_torch.train import DualTrainer, TrainConfig
+
+    tc = TrainConfig(dropout_rate=0.0)
+    batch, _ = train_batch(256, 5, "cuda")
+    kern = DualTrainer("snv", tc, device="cuda")
+    plain = DualTrainer("snv", tc, device="cuda")
+    for net in ("aff", "neg"):
+        plain.models[net].load_state_dict(kern.models[net].state_dict())
+    gap = compare(step_grads(kern, batch), step_grads(plain, batch, use_kernel=False))
+    assert gap["loss_rel"] <= 1e-6 and gap["worst_leaf_rel"] <= 1e-5, gap

@@ -179,6 +179,24 @@ def test_one_step_parameters_match_jax(one_step):
     assert moved, "the BatchNorm statistics were not trained"
 
 
+def test_kernel_path_step_matches_the_plain_loop_step():
+    """The trainer's recurrence runs through ops/gru.py::GRUDirection (on the
+    CPU: the plain forward and the explicit backward loop); a step with
+    ``use_kernel=False`` runs autograd through the plain loop.  From the same
+    weights and batch the two give the same loss and gradients."""
+    x, cov, som = _data(BATCH)
+    x = (x * np.where(cov > 50, 50.0 / cov, 1.0).astype(np.float32)[:, None, None])
+    al, nl = _labels(som, 4)
+    batch = [torch.from_numpy(a) for a in (x, x, al, nl)]
+    _jt, tt = _pair()
+    got = grad_check.step_grads(tt, batch)
+    _jt, tt = _pair()
+    want = grad_check.step_grads(tt, batch, use_kernel=False)
+    gap = grad_check.compare(got, want)
+    assert gap["loss_rel"] <= 1e-6 and gap["norm_rel"] <= 1e-6, gap
+    assert gap["worst_leaf_rel"] <= 1e-6, gap
+
+
 def test_train_learning_rate_flag_matches_jax(monkeypatch, tmp_path):
     """``train --learning_rate 0.01`` gives both packages' trainers the same
     TrainConfig, and one step at that rate from the same weights ends at
