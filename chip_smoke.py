@@ -1,23 +1,29 @@
 """Smoke run of the PyTorch/CUDA port (clairs_to_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--prev-source OLD_GRU_CU]
+    python3 chip_smoke.py [--prev-source OLD_GRU_CU] [--prev-bwd-source OLD_GRU_BWD_CU]
 
 Phases, each fatal on failure:
   1. build the GRU kernels (csrc/gru.cu, the forward, and csrc/gru_bwd.cu,
      its backward) from the checkout, one nvcc each, both at once;
   2. hold the forward kernel against its plain PyTorch version on the card
-     (H in {16, 24, 128, 192}, B in {8192, 8191, 1000}, both directions) and
-     time it, with x_gates cold in L2, beside the plain version and cuDNN's
-     torch.nn.GRU (a yardstick only).
+     (H in {16, 24, 128, 192}, B in {8192, 8191, 4096, 1000}, both
+     directions) and time it, with x_gates cold in L2, beside the plain
+     version and cuDNN's torch.nn.GRU (a yardstick only).
      With --prev-source, an earlier gru.cu (the same C entry point, taking
      W_hh^T unpacked) is built beside it and the two are timed in turns:
      old, new, new, old.  Then the backward kernel at the training shapes
-     (T=33, H in {128, 192}, B in {800, 256}, both directions): against
+     (T=33, H in {128, 192}, B in {800, 256}, both directions), with its
+     launch geometry (cluster size, CTAs, rows a cluster, clusters the card
+     runs at once, shared memory a CTA): against
      gru_direction_backward_plain from the forward kernel's output and
      against autograd through gru_direction_plain from that loop's own
      output, each gradient within 1e-5 of the largest reference value; timed
      cold in L2 beside the plain version and the backward of cuDNN's
-     torch.nn.GRU (torch.autograd.grad of its output);
+     torch.nn.GRU (torch.autograd.grad of its output).
+     With --prev-bwd-source, an earlier gru_bwd.cu (the C entry point of
+     the first backward kernel: W_hh^T and W_hh unpacked, no geometry) is
+     built beside it, held to the new kernel within 1e-5 and the two are
+     timed in turns at each of the four shapes: old, new, new, old;
   3. the engine's forward on the flagship ONT SNV and indel weights at
      device_batch 8192, with the kernel against the plain GRU;
   4. ``clairs_to_tpu_torch run -p ont`` with every post-calling stage opted
@@ -200,11 +206,11 @@ def _rel(got, want):
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
 
-def start_prev_build(src):
-    """Start nvcc on an earlier gru.cu; returns (process, library path)."""
+def start_prev_build(src, name="libgru_prev.so"):
+    """Start nvcc on an earlier kernel source; returns (process, library path)."""
     from clairs_to_tpu_torch.ops import gru
 
-    so = os.path.join(WORK, "libgru_prev.so")
+    so = os.path.join(WORK, name)
     cmd = [gru._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC", "-o", so, os.path.abspath(src)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so
@@ -228,6 +234,31 @@ def load_prev(build):
         if err != 0:
             raise RuntimeError(f"previous gru kernel launch failed: cudaError {err}")
         return out
+    return run
+
+
+def load_prev_bwd(build):
+    """The earlier backward kernel (W_hh^T and W_hh unpacked, its wrapper's
+    transpose included) as a function of (x_gates, w_hh_t, b_hh, out,
+    grad_out) -> (grad_x_gates, grad_hg)."""
+    proc, so = build
+    diag, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the previous gru_bwd.cu:\n{diag}")
+    fn = ctypes.CDLL(so).gru_direction_backward_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+    def run(xg, w, b, out, gout):
+        steps, B, _ = xg.shape
+        gx, ghg = torch.empty_like(xg), torch.empty_like(xg)
+        w_hh = w.t().contiguous()
+        err = fn(xg.data_ptr(), w.data_ptr(), w_hh.data_ptr(), b.data_ptr(), out.data_ptr(),
+                 gout.data_ptr(), gx.data_ptr(), ghg.data_ptr(), steps, B, w.shape[0], 0,
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"previous gru_bwd kernel launch failed: cudaError {err}")
+        return gx, ghg
     return run
 
 
@@ -289,12 +320,13 @@ def phase_kernel(gru, dev, prev=None):
 GRADS = ("grad_x_gates", "grad_w_hh_t", "grad_b_hh")
 
 
-def phase_backward(gru, dev):
+def phase_backward(gru, dev, prev=None):
     """Phase 2, the backward kernel at the training shapes: held to
     gru_direction_backward_plain (from the forward kernel's output) and to
     autograd through gru_direction_plain (the kernel given that loop's own
-    output), then timed.  Returns (the largest relative and absolute
-    differences, timings by (H, B))."""
+    output), then timed; with ``prev`` (an earlier backward kernel), held to
+    it and timed in turns with it.  Returns (the largest relative and
+    absolute differences, timings and launch geometry by (H, B))."""
     rng = np.random.default_rng(3)
     worst_rel, worst_abs, timings = 0.0, 0.0, {}
     for H in (128, 192):
@@ -331,6 +363,12 @@ def phase_backward(gru, dev):
             lib_out, _ = lib(x_in)
             lib_leaves = [x_in, *lib.parameters()]
             out = gru.gru_direction(xg, w, b)
+            geo = gru.bwd_launch_geometry(H, B, dev)
+            log(f"[backward] geometry H={H} B={B}: cluster {geo['cluster']} CTAs of "
+                f"{geo['cols']} columns, {geo['ctas']} CTAs, {geo['rows']} rows a cluster, "
+                f"{geo['clusters']} clusters in {geo['waves']} wave(s) of at most "
+                f"{geo['active_clusters']} at once, {geo['smem_bytes']} bytes of shared "
+                f"memory and {geo['threads']} threads a CTA")
             t = dict(
                 kernel_ms=cold_ms(lambda: gru.gru_direction_backward_kernel(xg, w, b, out, gout)),
                 wrapper_ms=cold_ms(lambda: gru.gru_direction_backward(xg, w, b, out, gout)),
@@ -338,7 +376,25 @@ def phase_backward(gru, dev):
                 library_ms=cuda_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, gout,
                                                                retain_graph=True), 10),
             )
+            if prev is not None:
+                new = gru.gru_direction_backward_kernel(xg, w, b, out, gout)
+                err = max(_rel(o, n) for o, n in zip(prev(xg, w, b, out, gout), new))
+                log(f"[backward] previous kernel vs this one H={H} B={B}: max|d|/max|ref| "
+                    f"{err:.2e}")
+                if err > BWD_TOL:
+                    raise AssertionError(f"previous backward kernel disagrees at H={H} B={B} "
+                                         f"({err:.3e})")
+                def this():
+                    return gru.gru_direction_backward_kernel(xg, w, b, out, gout)
+
+                def old():
+                    return prev(xg, w, b, out, gout)
+                turns = [cold_ms(old), cold_ms(this), cold_ms(this), cold_ms(old)]
+                t["turns_old_new_new_old_ms"] = turns
+                t["prev_ms"] = (turns[0] + turns[3]) / 2
+                t["kernel_ms"] = (turns[1] + turns[2]) / 2
             t.update(gru_bwd_bound_ms(B, H))
+            t["geometry"] = geo
             timings[H, B] = t
             log(f"[backward] timing T={T} B={B} H={H}: " + json.dumps(t))
     return dict(max_rel_err=worst_rel, max_abs_err=worst_abs), timings
@@ -1190,6 +1246,8 @@ def phase_end_to_end(card, genome_len, ilmn_len):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--prev-source", help="an earlier csrc/gru.cu to time against")
+    ap.add_argument("--prev-bwd-source", help="an earlier csrc/gru_bwd.cu (the first backward "
+                                              "kernel's C entry point) to time against")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device; this script runs only on a GPU\n")
@@ -1209,10 +1267,13 @@ def main(argv=None):
     log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     prev_build = start_prev_build(args.prev_source) if args.prev_source else None
+    prev_bwd_build = (start_prev_build(args.prev_bwd_source, "libgru_bwd_prev.so")
+                      if args.prev_bwd_source else None)
     phase_build(gru)
     prev = load_prev(prev_build) if prev_build else None
+    prev_bwd = load_prev_bwd(prev_bwd_build) if prev_bwd_build else None
     max_err, timings = phase_kernel(gru, dev, prev)
-    bwd_err, bwd_timings = phase_backward(gru, dev)
+    bwd_err, bwd_timings = phase_backward(gru, dev, prev_bwd)
     engine = phase_engine(dev)
     e2e = phase_end_to_end(card, GENOME_LEN, ILMN_GENOME_LEN)
     e2e["replicas"] = phase_replicas(dev)
@@ -1249,7 +1310,10 @@ def main(argv=None):
         bound_ms=tb["bound_ms"], bound_by=tb["bound_by"], bound_rate=tb["bound_rate"],
         library_ms=tb["library_ms"], shape=f"T={T} B=800 H=192",
         other_shapes={f"H={h} B={b}": v for (h, b), v in bwd_timings.items() if (h, b) != (192, 800)},
+        geometry=tb["geometry"],
     ))
+    if "prev_ms" in tb:
+        kernels[1]["prev_ms"] = tb["prev_ms"]
     for k in kernels:
         if min(k["launches_by_path"].values()) <= 0:
             raise AssertionError(f"a path never launched {k['name']}: {k['launches_by_path']}")

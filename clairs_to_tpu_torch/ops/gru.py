@@ -14,7 +14,8 @@ it never falls back.
 The kernels are compiled by ``nvcc`` for sm_90a into ``build/kernels/`` at
 the repository root on first use and loaded with ctypes.  The forward reads
 W_hh^T in the chunked layout of ``pack_w_hh``, which the wrapper builds for
-each launch.
+each launch; the backward reads W_hh^T as it is, and runs on a grid of
+thread-block clusters that ``bwd_geometry`` sizes.
 """
 
 import ctypes
@@ -36,10 +37,11 @@ MAX_HIDDEN = 256   # csrc/gru.cu and csrc/gru_bwd.cu: the largest H they take
 KC, GROUP = 16, 64  # csrc/gru.cu: W rows per chunk, hidden units per column group
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# library -> (its entry point, the entry point's argument types)
-_ENTRY = {"gru": ("gru_direction_f32", [_P] * 4 + [_I] * 4 + [_P]),
-          "gru_bwd": ("gru_direction_backward_f32", [_P] * 8 + [_I] * 4 + [_P])}
-_libs = {}   # library -> its loaded entry point
+# library -> {entry point: its argument types}; the first is the launch
+_ENTRY = {"gru": {"gru_direction_f32": [_P] * 4 + [_I] * 4 + [_P]},
+          "gru_bwd": {"gru_direction_backward_f32": [_P] * 7 + [_I] * 6 + [_P],
+                      "gru_direction_backward_max_clusters": [_I] * 3 + [ctypes.POINTER(_I)]}}
+_libs = {}   # library -> {entry point: its loaded function}
 _lock = threading.Lock()
 
 
@@ -90,16 +92,22 @@ def build(names=("gru", "gru_bwd"), verbose=False):
             raise RuntimeError("\n".join(failed))
         for name in names:
             if name not in _libs:
-                fn = getattr(ctypes.CDLL(_paths(name)[1]), _ENTRY[name][0])
-                fn.restype, fn.argtypes = ctypes.c_int, _ENTRY[name][1]
-                _libs[name] = fn
+                lib = ctypes.CDLL(_paths(name)[1])
+                fns = {}
+                for entry, argtypes in _ENTRY[name].items():
+                    fn = getattr(lib, entry)
+                    fn.restype, fn.argtypes = ctypes.c_int, argtypes
+                    fns[entry] = fn
+                _libs[name] = fns
         return log
 
 
-def _entry(name):
+def _entry(name, entry=None):
+    """The loaded function ``entry`` of library ``name`` (its launch by
+    default), built first if need be."""
     if name not in _libs:
         build((name,))
-    return _libs[name]
+    return _libs[name][entry or next(iter(_ENTRY[name]))]
 
 
 def gru_direction_plain(x_gates, w_hh_t, b_hh, reverse=False):
@@ -156,6 +164,117 @@ def pack_w_hh(w_hh_t):
     parts = torch.stack(split_tf32(w)).view(2, hk // KC, KC // 8, 2, 4, 3, n_groups, 2, 4, 4, 2)
     parts = parts.permute(6, 1, 0, 7, 2, 5, 9, 3, 8, 10, 4)
     return parts.reshape(n_groups, hk // KC, 2, 2, KC // 8, 3, 4, 2, 8, 4)
+
+
+# csrc/gru_bwd.cu's launch: clusters of CTAs, each CTA a slice of hidden
+# columns (padded to a multiple of 4), each octet of threads a tile of 4
+# batch rows x 4 columns
+BWD_TILE = 4
+BWD_MAX_THREADS = 256
+BWD_SMEM_LIMIT = 232448   # dynamic shared memory a CTA may use on sm_90 (227 KiB)
+BWD_MAX_ROWS = 64         # rows a cluster
+BWD_MIN_ROWS = 16         # rows a cluster must be able to hold at the chosen size
+BWD_CLUSTERS = (1, 2, 4, 8, 16)   # 16: the non-portable size, which sm_90 allows
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _bank_stride(n):
+    """n rounded up to 4 mod 8 (csrc/gru_bwd.cu's ``bank_stride``)."""
+    return n + (12 - n % 8) % 8
+
+
+def bwd_cols(H, cluster):
+    """Hidden columns a CTA owns, and the same padded to a whole tile."""
+    cols = _cdiv(H, cluster)
+    return cols, _cdiv(cols, BWD_TILE) * BWD_TILE
+
+
+def bwd_smem_bytes(H, cluster, rows):
+    """Shared memory of one CTA of the backward kernel, as csrc/gru_bwd.cu's
+    ``Layout`` lays it out in float32: the CTA's columns of W_hh^T (H rows of
+    3 padded column counts, the row padded to 4 mod 8 floats) and of W_hh
+    (3H rows of the padded column count, padded to 4 mod 8), then h_prev
+    (rows x (H rounded up to 8, + 4)) and two buffers of grad_hg (rows x (3H
+    rounded up to 8, + 4))."""
+    hcp = bwd_cols(H, cluster)[1]
+    return 4 * (H * _bank_stride(3 * hcp) + 3 * H * _bank_stride(hcp)
+                + rows * (_cdiv(H, 8) * 8 + 4) + 2 * rows * (_cdiv(3 * H, 8) * 8 + 4))
+
+
+def bwd_threads(H, cluster, rows):
+    """Threads of one CTA: 8 for each tile of 4 rows x 4 columns."""
+    return rows * bwd_cols(H, cluster)[1] // 2
+
+
+def bwd_max_rows(H, cluster):
+    """The most rows a cluster of ``cluster`` CTAs can own at hidden size H
+    (a multiple of 4, at most BWD_MAX_ROWS; 0 when not even 4 fit)."""
+    for rows in range(BWD_MAX_ROWS, 0, -BWD_TILE):
+        if (bwd_threads(H, cluster, rows) <= BWD_MAX_THREADS
+                and bwd_smem_bytes(H, cluster, rows) <= BWD_SMEM_LIMIT):
+            return rows
+    return 0
+
+
+def bwd_cluster(H):
+    """The cluster size of the backward kernel at hidden size H: the least
+    of BWD_CLUSTERS whose CTAs, W held resident, still have room for
+    BWD_MIN_ROWS rows a cluster."""
+    for cluster in BWD_CLUSTERS:
+        if bwd_max_rows(H, cluster) >= BWD_MIN_ROWS:
+            return cluster
+    raise ValueError(f"gru_direction_backward: no cluster holds hidden {H}")
+
+
+def bwd_geometry(H, B, active_clusters):
+    """The backward kernel's grid for B rows at hidden size H on a card that
+    runs ``active_clusters`` clusters at once (counted at the largest rows a
+    cluster, so at least as many at fewer).
+
+    The rows a cluster are the fewest (a multiple of 4) that cover B in as
+    few waves of ``active_clusters`` clusters as the largest row count
+    allows: B=256 at H=192 on 16 clusters is 16 rows a cluster, one wave.
+    Cluster n owns rows [n rows, n rows + rows) and its CTA c the hidden
+    columns [c cols, c cols + cols), both clipped to B and H.  Raises
+    RuntimeError when the card runs no cluster of this shape."""
+    cluster = bwd_cluster(H)
+    max_rows = bwd_max_rows(H, cluster)
+    if active_clusters < 1:
+        raise RuntimeError(f"gru_direction_backward: the card cannot run a cluster of "
+                           f"{cluster} CTAs with {bwd_smem_bytes(H, cluster, max_rows)} "
+                           f"bytes of shared memory each (hidden {H})")
+    waves = _cdiv(_cdiv(B, max_rows), active_clusters)
+    rows = min(max_rows, _cdiv(_cdiv(B, waves * active_clusters), BWD_TILE) * BWD_TILE)
+    clusters = _cdiv(B, rows)
+    return dict(cluster=cluster, cols=bwd_cols(H, cluster)[0], rows=rows, clusters=clusters,
+                ctas=clusters * cluster, threads=bwd_threads(H, cluster, rows),
+                smem_bytes=bwd_smem_bytes(H, cluster, rows),
+                waves=_cdiv(clusters, active_clusters), active_clusters=active_clusters)
+
+
+_active = {}   # (H, device index) -> clusters of the backward kernel's shape the card runs at once
+
+
+def bwd_launch_geometry(H, B, device):
+    """``bwd_geometry`` on the CUDA ``device``, whose clusters at once the
+    kernel's library reports (cudaOccupancyMaxActiveClusters), cached per
+    (H, device)."""
+    device = torch.device(device)
+    key = (H, device.index if device.index is not None else torch.cuda.current_device())
+    if key not in _active:
+        fn = _entry("gru_bwd", "gru_direction_backward_max_clusters")
+        cluster = bwd_cluster(H)
+        n = ctypes.c_int(0)
+        with torch.cuda.device(key[1]):
+            err = fn(H, cluster, bwd_max_rows(H, cluster), ctypes.byref(n))
+        if err != 0:
+            raise RuntimeError(f"gru_direction_backward: cluster of {cluster} CTAs at hidden "
+                               f"{H} refused: cudaError {err}")
+        _active[key] = n.value
+    return bwd_geometry(H, B, _active[key])
 
 
 def _check(name, tensors, shapes):
@@ -280,14 +399,14 @@ def gru_direction_backward_kernel(x_gates, w_hh_t, b_hh, out, grad_out, reverse=
         return _bptt_plain(*tensors, reverse)
     T, B, H = _check("gru_direction_backward", tensors, "xwbhh")
     fn = _entry("gru_bwd")
+    geo = bwd_launch_geometry(H, B, x_gates.device)
     grad_x = torch.empty_like(x_gates)
     grad_hg = torch.empty_like(x_gates)
-    w_hh = w_hh_t.t().contiguous()
     with torch.cuda.device(x_gates.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x_gates.data_ptr(), w_hh_t.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
-                 out.data_ptr(), grad_out.data_ptr(), grad_x.data_ptr(), grad_hg.data_ptr(),
-                 T, B, H, int(reverse), stream)
+        err = fn(x_gates.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(), out.data_ptr(),
+                 grad_out.data_ptr(), grad_x.data_ptr(), grad_hg.data_ptr(),
+                 T, B, H, int(reverse), geo["cluster"], geo["rows"], stream)
     if err != 0:
         raise RuntimeError(f"gru_direction_backward kernel launch failed: cudaError {err}")
     with _count_lock:

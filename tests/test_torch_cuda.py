@@ -78,12 +78,15 @@ def _rel(got, want):
 
 
 @pytest.mark.parametrize("H", [1, 16, 24, 40, 128, 192, 200, 256])
-@pytest.mark.parametrize("B", [1, 63, 65, 1000, 8191, 8192])
+@pytest.mark.parametrize("B", [1, 15, 16, 17, 63, 65, 255, 256, 257, 800, 1000, 8191, 8192])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_backward_kernel_matches_plain(cuda, H, B, reverse):
     """The backward kernel against ``gru_direction_backward_plain`` from the
-    forward kernel's output, over the forward's grid: every gradient within
-    1e-5 of the largest reference value."""
+    forward kernel's output: every gradient within 1e-5 of the largest
+    reference value.  B straddles the rows a cluster owns (4, 12, 16, 20 at
+    these H) and the training batch; no cluster size divides H = 24, 40 or
+    200 into whole tiles of 4 columns, and at H = 1 three of a tile's four
+    columns are padding."""
     xg, w, b = _inputs(B, H, seed=H + B + 1, device=cuda)
     out = tgru.gru_direction(xg, w, b, reverse=reverse)
     gout = torch.randn(out.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(H))
@@ -129,6 +132,29 @@ def test_backward_kernel_rejects_bad_inputs(cuda):
         tgru.gru_direction_backward(xg, w, b, out, out.transpose(0, 1).contiguous())
     with pytest.raises(TypeError):
         tgru.gru_direction_backward(xg, w, b, out, out.double())
+
+
+def test_unschedulable_cluster_raises(cuda, monkeypatch):
+    """No fallback: a cluster shape that the card reports it cannot run
+    (no cluster at once), or that the kernel's library refuses (32 CTAs),
+    raises RuntimeError without launching the kernel or running the plain
+    loop."""
+    xg, w, b = _inputs(256, 192, seed=6, device=cuda)
+    out = tgru.gru_direction(xg, w, b)
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain loop ran on CUDA tensors")
+    monkeypatch.setattr(tgru, "_bptt_plain", no_plain)
+    before = tgru.gru_direction_backward.launches
+    key = (192, torch.cuda.current_device())
+    monkeypatch.setitem(tgru._active, key, 0)
+    with pytest.raises(RuntimeError, match="cannot run a cluster"):
+        tgru.gru_direction_backward(xg, w, b, out, out)
+    monkeypatch.delitem(tgru._active, key)
+    monkeypatch.setattr(tgru, "bwd_cluster", lambda H: 32)
+    with pytest.raises(RuntimeError, match="refused"):
+        tgru.gru_direction_backward(xg, w, b, out, out)
+    assert tgru.gru_direction_backward.launches == before
 
 
 def test_unbuildable_backward_raises_in_training(cuda, tmp_path, monkeypatch):
