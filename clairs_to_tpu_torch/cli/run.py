@@ -769,7 +769,7 @@ def _pipeline_body(args, metrics, t0, tee, engines=None):
     from clairs_to_tpu_torch.genome.bed import bed_tree_from
     from clairs_to_tpu_torch.genome.chunks import plan_chunks
     from clairs_to_tpu_torch.genome.fasta import FastaFile
-    from clairs_to_tpu_torch.infer.pipeline import CallingPipeline, PipelineOptions
+    from clairs_to_tpu_torch.infer.pipeline import CallingPipeline, PipelineOptions, chunk_id
     from clairs_to_tpu_torch.ops.gru import gru_direction
     from clairs_to_tpu_torch.parallel.scheduler import (
         all_hosts_barrier,
@@ -952,7 +952,7 @@ def _pipeline_body(args, metrics, t0, tee, engines=None):
         # realignment + no-phasing postfilter (run_clairs_to STEP 4,
         # :1450-1514).  Both read the chunk's decoded views: before evict_views
         if res.snv_rows and (apply_hap_filter or apply_postfilter):
-            with metrics.stage("hard_filters"):
+            with metrics.stage("hard_filters", chunk_id(ch)):
                 _apply_chunk_filters(
                     pipe, ch, res, apply_hap_filter, apply_postfilter, args
                 )
@@ -976,7 +976,7 @@ def _pipeline_body(args, metrics, t0, tee, engines=None):
         metrics.count("snv_rows", len(res.snv_rows))
         metrics.count("indel_rows", len(res.indel_rows))
         if not args.disable_verdict:
-            with metrics.stage("verdict_counts"):
+            with metrics.stage("verdict_counts", chunk_id(ch)):
                 _accumulate_verdict_counts(pipe, ch, res, resource_loci, verdict_acc)
         pipe.evict_views(ch)
         now = time.time()

@@ -35,6 +35,7 @@ from clairs_to_tpu_torch import config as cfg
 from clairs_to_tpu_torch.models import bigru, cvt
 from clairs_to_tpu_torch.models.checkpoint import params_from_jax
 from clairs_to_tpu_torch.ops import posterior as post
+from clairs_to_tpu_torch.utils import metrics as tracing
 
 
 @dataclass
@@ -278,75 +279,93 @@ class InferenceEngine:
 
         Args: raw (unrescaled) count tensors (N,33,34) and coverages (N,).
         Inputs larger than ``device_batch`` run in fixed-shape slices.
+        The batch's spans (``utils/metrics.py``) share one id, through
+        ``result()``.
         """
+        bid = tracing.new_id()
+        with tracing.span("engine.dispatch", bid):
+            return self._dispatch(bid, x_aff, x_neg, cov_aff, cov_neg)
+
+    def _dispatch(self, bid, x_aff, x_neg, cov_aff, cov_neg) -> "PendingBatch":
         n = x_aff.shape[0]
         identity = x_neg is x_aff
         x_aff = np.asarray(x_aff)
         cov_aff = np.asarray(cov_aff)
         cov_neg = cov_aff if cov_neg is cov_aff else np.asarray(cov_neg)
-        xa16 = self._intify(x_aff)
-        ca16 = self._intify(cov_aff) if xa16 is not None else None
-        cn16 = (ca16 if cov_neg is cov_aff else
-                (self._intify(cov_neg) if ca16 is not None else None))
-        use_int = xa16 is not None and ca16 is not None and cn16 is not None
-        d16 = None
-        if use_int and not identity:
-            xn16 = self._intify(np.asarray(x_neg))
-            if xn16 is None:
-                use_int = False
-            else:
-                delta = xn16.astype(np.int32) - xa16
-                if delta.size and (int(delta.max()) >= 32768
-                                   or int(delta.min()) < -32768):
+        with tracing.span("engine.pack"):
+            xa16 = self._intify(x_aff)
+            ca16 = self._intify(cov_aff) if xa16 is not None else None
+            cn16 = (ca16 if cov_neg is cov_aff else
+                    (self._intify(cov_neg) if ca16 is not None else None))
+            use_int = xa16 is not None and ca16 is not None and cn16 is not None
+            d16 = None
+            if use_int and not identity:
+                xn16 = self._intify(np.asarray(x_neg))
+                if xn16 is None:
                     use_int = False
                 else:
-                    d16 = delta.astype(np.int16)
-        if use_int:
-            # row 33 columns 2.. are never read: np.empty leaves them unset
-            packed = np.empty((n, 34, 34), np.int16)
-            packed[:, :33, :] = xa16
-            packed[:, 33, 0] = ca16
-            packed[:, 33, 1] = cn16
+                    delta = xn16.astype(np.int32) - xa16
+                    if delta.size and (int(delta.max()) >= 32768
+                                       or int(delta.min()) < -32768):
+                        use_int = False
+                    else:
+                        d16 = delta.astype(np.int16)
+            if use_int:
+                # row 33 columns 2.. are never read: np.empty leaves them unset
+                packed = np.empty((n, 34, 34), np.int16)
+                packed[:, :33, :] = xa16
+                packed[:, 33, 0] = ca16
+                packed[:, 33, 1] = cn16
         if self._on_cuda:
             set_matmul_precision(self.matmul_precision)
-        handles = []
+        handles, h2d_bytes = [], 0
         for i in range(0, n, self.device_batch):
             sl = slice(i, i + self.device_batch)
             ni = min(self.device_batch, n - i)
-            if use_int:
-                padded = (self._pad(packed[sl]),
-                          None if d16 is None else self._pad(d16[sl]))
-            else:
-                padded = (self._pad(np.asarray(x_aff[sl], np.float32)),
-                          None if identity else self._pad(np.asarray(x_neg[sl], np.float32)),
-                          self._pad(np.asarray(cov_aff[sl], np.float32), value=1),
-                          None if cov_neg is cov_aff
-                          else self._pad(np.asarray(cov_neg[sl], np.float32), value=1))
+            with tracing.span("engine.upload"):
+                if use_int:
+                    padded = (self._pad(packed[sl]),
+                              None if d16 is None else self._pad(d16[sl]))
+                else:
+                    padded = (self._pad(np.asarray(x_aff[sl], np.float32)),
+                              None if identity else self._pad(np.asarray(x_neg[sl], np.float32)),
+                              self._pad(np.asarray(cov_aff[sl], np.float32), value=1),
+                              None if cov_neg is cov_aff
+                              else self._pad(np.asarray(cov_neg[sl], np.float32), value=1))
             # every replica's part is dispatched before any is consumed; each
             # has its own pinned buffer and its own event on its own device
             parts = []
             for k, device in enumerate(self.devices):
                 with _on_device(device):
-                    part = [None if a is None else self._put(self._part(a, k), k)
-                            for a in padded]
-                    if use_int:
-                        pk, xd = part
-                        p1 = self._forward_delta(
-                            pk, self._zero_delta_dev(k) if xd is None else xd, k)
-                    else:
-                        xa, xn, ca, cn = part
-                        p1 = self._forward_full(xa, xa if xn is None else xn,
-                                                ca, ca if cn is None else cn, k)
-                    event = None
+                    with tracing.span("engine.upload"):
+                        part = [None if a is None else self._put(self._part(a, k), k)
+                                for a in padded]
                     if device.type == "cuda":
-                        host = torch.empty(p1.shape, dtype=p1.dtype, pin_memory=True)
-                        host.copy_(p1, non_blocking=True)
-                        event = torch.cuda.Event()
-                        event.record()
-                        p1 = host
+                        h2d_bytes += sum(a.nbytes for a in part if a is not None)
+                    with tracing.span("engine.launch"):
+                        if use_int:
+                            pk, xd = part
+                            p1 = self._forward_delta(
+                                pk, self._zero_delta_dev(k) if xd is None else xd, k)
+                        else:
+                            xa, xn, ca, cn = part
+                            p1 = self._forward_full(xa, xa if xn is None else xn,
+                                                    ca, ca if cn is None else cn, k)
+                        event = None
+                        if device.type == "cuda":
+                            host = torch.empty(p1.shape, dtype=p1.dtype, pin_memory=True)
+                            host.copy_(p1, non_blocking=True)
+                            event = torch.cuda.Event()
+                            event.record()
+                            p1 = host
                 parts.append((p1, event))
             handles.append((ni, sl, parts))
-        return PendingBatch(self, handles, x_aff)
+        tracing.count("engine.batches")
+        tracing.count("engine.rows", n)
+        tracing.count("engine.rows_padded", len(handles) * self.device_batch)
+        tracing.count("engine.float_path_batches", int(not use_int))
+        tracing.count("engine.h2d_bytes", h2d_bytes)
+        return PendingBatch(self, handles, x_aff, bid)
 
     def _consume(self, n, x_aff_slice, parts) -> BatchResult:
         """``parts``: the replicas' (B/n, 2, A) class-1 probabilities on the
@@ -358,9 +377,11 @@ class InferenceEngine:
         p1h = p1.numpy().astype(np.float64)
         p_aff = np.round(p1h[:n, 0], 8)
         p_neg = np.round(p1h[:n, 1], 8)
-        posterior = post.posterior_probs_np(p_aff, p_neg, self.likelihood)
-        fwd, rev = recover_strand_counts(
-            np.asarray(x_aff_slice)[:, cfg.FLANKING_BASE_NUM, :])
+        with tracing.span("engine.posterior"):
+            posterior = post.posterior_probs_np(p_aff, p_neg, self.likelihood)
+        with tracing.span("engine.strands"):
+            fwd, rev = recover_strand_counts(
+                np.asarray(x_aff_slice)[:, cfg.FLANKING_BASE_NUM, :])
         return BatchResult(p_aff=p_aff, p_neg=p_neg, posterior=posterior,
                            forward_acgt=fwd, reverse_acgt=rev)
 
@@ -379,22 +400,32 @@ class InferenceEngine:
 class PendingBatch:
     """A dispatched run_batch: device slices in flight, host copies queued."""
 
-    def __init__(self, engine, handles, x_aff):
+    def __init__(self, engine, handles, x_aff, bid):
         self._engine = engine
         self._handles = handles
         self._x_aff = x_aff
+        self._id = bid
         self._result = None
 
     def result(self) -> BatchResult:
         if self._result is not None:
             return self._result
+        with tracing.span("engine.result", self._id):
+            self._result = self._collect()
+        self._handles = None
+        self._x_aff = None
+        return self._result
+
+    def _collect(self) -> BatchResult:
         parts = []
         for (ni, sl, slice_parts) in self._handles:
-            for _p1, event in slice_parts:
-                if event is not None:
-                    event.synchronize()
-            parts.append(self._engine._consume(ni, self._x_aff[sl],
-                                               [p1 for p1, _event in slice_parts]))
+            with tracing.span("engine.wait"):
+                for _p1, event in slice_parts:
+                    if event is not None:
+                        event.synchronize()
+            with tracing.span("engine.consume"):
+                parts.append(self._engine._consume(ni, self._x_aff[sl],
+                                                   [p1 for p1, _event in slice_parts]))
         if len(parts) == 1:
             res = parts[0]
         else:
@@ -405,7 +436,4 @@ class PendingBatch:
                 forward_acgt=np.concatenate([p.forward_acgt for p in parts]),
                 reverse_acgt=np.concatenate([p.reverse_acgt for p in parts]),
             )
-        self._result = res
-        self._handles = None
-        self._x_aff = None
         return res

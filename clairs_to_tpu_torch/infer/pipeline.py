@@ -17,8 +17,6 @@ import os
 from dataclasses import dataclass, field
 from typing import List, Optional
 
-import time as _time
-
 import numpy as np
 
 from clairs_to_tpu_torch import config as cfg
@@ -27,9 +25,15 @@ from clairs_to_tpu_torch.bamio.pileup import PileupEngine
 from clairs_to_tpu_torch.genome.chunks import Chunk
 from clairs_to_tpu_torch.infer.calling import CandidateRecord, emit_calls
 from clairs_to_tpu_torch.infer.engine import InferenceEngine
+from clairs_to_tpu_torch.utils import metrics as tracing
 
 FLANK = cfg.FLANKING_BASE_NUM
 WIN = cfg.NO_OF_POSITIONS
+
+
+def chunk_id(chunk: Chunk) -> str:
+    """The id that a chunk's spans carry, unique within a run."""
+    return f"{chunk.ctg_name}:{chunk.chunk_id}"
 
 
 @dataclass
@@ -148,7 +152,14 @@ class CallingPipeline:
         """
         if chunk in self._views_memo:
             return self._views_memo[chunk]
-        _t0 = _time.time()
+        # decode runs on the prefetch worker, overlapping device compute and
+        # engine load: its own (concurrent) stage
+        with self._stage("decode_tensor_build(worker)", chunk):
+            views = self._decode_views(chunk)
+        self._views_memo[chunk] = views
+        return views
+
+    def _decode_views(self, chunk: Chunk):
         ctg = chunk.ctg_name
         ctg_len = self.fasta.contig_length(ctg)
         region_start = max(chunk.ctg_start - WIN, 0)
@@ -276,15 +287,7 @@ class CallingPipeline:
                 and getattr(pe, "_win", None) is not None
                 and pe._win.has_filter_data):
             pe._win.filter_assembly()
-        views = (pe, aff_counts, neg_counts, region_start, region_end)
-        self._views_memo[chunk] = views
-        if self.metrics is not None:
-            # decode runs on the prefetch worker, overlapping device compute
-            # and engine load — record it as its own (concurrent) stage
-            self.metrics.stage_seconds["decode_tensor_build(worker)"] += (
-                _time.time() - _t0
-            )
-        return views
+        return (pe, aff_counts, neg_counts, region_start, region_end)
 
     def _window(self, counts, center, region_start):
         i = center - region_start
@@ -381,19 +384,20 @@ class CallingPipeline:
         )
 
     # ------------------------------------------------------------------
-    def _stage(self, name):
+    def _stage(self, name, chunk):
+        """A stage of ``metrics``, or a bare span without them; either
+        carries the chunk's id."""
+        cid = chunk_id(chunk)
         if self.metrics is not None:
-            return self.metrics.stage(name)
-        import contextlib
-
-        return contextlib.nullcontext()
+            return self.metrics.stage(name, cid)
+        return tracing.span(name, cid)
 
     def call_chunk(self, chunk: Chunk) -> ChunkResult:
         return self.finish_chunk(self.dispatch_chunk(chunk))
 
     def dispatch_chunk(self, chunk: Chunk) -> PendingChunkCall:
         opt = self.opt
-        with self._stage("decode_tensor_build"):
+        with self._stage("decode_tensor_build", chunk):
             pe, aff_counts, neg_counts, region_start, region_end = \
                 self.build_chunk_views(chunk)
 
@@ -407,7 +411,7 @@ class CallingPipeline:
         if opt.genotyping_mode == "genotyping":
             snv_pos, indel_pos = requested, []
         else:
-            with self._stage("find_candidates"):
+            with self._stage("find_candidates", chunk):
                 snv_pos, indel_pos, infos = pe.find_candidates(
                     chunk.ctg_start, chunk.ctg_end,
                     min_bq=self.aff_min_bq,
@@ -475,7 +479,7 @@ class CallingPipeline:
         ]
         if not positions:
             return None
-        with self._stage("alt_info"):
+        with self._stage("alt_info", chunk):
             aff_alt = pe.alt_info_at(positions, min_bq=self.aff_min_bq)
             if neg_counts is aff_counts:
                 neg_alt = aff_alt
@@ -498,7 +502,7 @@ class CallingPipeline:
         cov_neg = (cov_aff if neg_alt is aff_alt else
                    np.array([neg_alt[p][1] for p in positions], np.float32))
 
-        with self._stage("device_infer"):
+        with self._stage("device_infer", chunk):
             run_async = getattr(engine, "run_batch_async", None)
             if run_async is not None:
                 pending = run_async(x_aff, x_neg, cov_aff, cov_neg)
@@ -519,7 +523,7 @@ class CallingPipeline:
         aff_alt = job["aff_alt"]
         mode = job["mode"]
         show_ref_at = job["show_ref_at"]
-        with self._stage("device_infer"):
+        with self._stage("device_infer", job["chunk"]):
             batch = job["pending"].result()
         if self.opt.predict_fn:
             self._dump_probabilities(

@@ -125,12 +125,16 @@ class PrefetchPipeline:
                 self._cv.notify_all()
 
     def __iter__(self):
+        from clairs_to_tpu_torch.utils import metrics as tracing
+
         for idx in range(len(self._items)):
             with self._cv:
-                while idx not in self._results and not any(
-                    i == idx for i, _ in self._errors
-                ):
-                    self._cv.wait()
+                # the time the caller waits for decode
+                with tracing.span("decode.wait"):
+                    while idx not in self._results and not any(
+                        i == idx for i, _ in self._errors
+                    ):
+                        self._cv.wait()
                 for i, e in self._errors:
                     if i == idx:
                         raise e

@@ -47,6 +47,7 @@ from clairs_to_tpu_torch.models.checkpoint import (  # noqa: F401  (the JAX modu
     save_checkpoint,
 )
 from clairs_to_tpu_torch.ops.posterior import LikelihoodData
+from clairs_to_tpu_torch.utils import metrics as tracing
 
 
 @dataclass
@@ -151,10 +152,16 @@ class DualTrainer:
         return norm
 
     def step(self, x, x_neg, aff_labels, neg_labels, generator=None):
-        """One training step; returns the loss (a device tensor)."""
-        loss = self.loss(x, x_neg, aff_labels, neg_labels, generator)
-        loss.backward()
-        self.apply_gradients()
+        """One training step; returns the loss (a device tensor).  Its spans
+        (``utils/metrics.py``): ``train.step`` around ``train.forward``,
+        ``train.backward`` and ``train.optim``."""
+        with tracing.span("train.step"):
+            with tracing.span("train.forward"):
+                loss = self.loss(x, x_neg, aff_labels, neg_labels, generator)
+            with tracing.span("train.backward"):
+                loss.backward()
+            with tracing.span("train.optim"):
+                self.apply_gradients()
         return loss.detach()
 
     def fit(self, x, somatic_allele, epochs=None, batch_size=None, log_every=0,

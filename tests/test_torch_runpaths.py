@@ -8,7 +8,9 @@ subcommands' remaining flags, ``serve --host --preload``; and every parser
 of both dispatchers, flag by flag."""
 
 import argparse
+import json
 import os
+import re
 import threading
 
 import pytest
@@ -238,6 +240,17 @@ def test_run_flags_match_jax_cli(case, multi, indels, dense, baseline, tmp_path,
     elif case == "trace_dir":
         assert os.path.getsize(os.path.join(tdir + ".trace", "trace.json")) > 0
         assert os.listdir(jdir + ".trace")
+        with open(os.path.join(tdir + ".trace", "trace.json")) as f:
+            trace = json.load(f)
+        spans = [e for e in trace["traceEvents"] if e.get("cat") == "program_span"]
+        names = {e["name"] for e in spans}
+        assert {"engine.dispatch", "engine.pack", "engine.launch", "engine.consume",
+                "find_candidates", "device_infer"} <= names, names
+        chunks = {e["args"]["id"] for e in spans if e["name"] == "device_infer"}
+        assert chunks and all(re.fullmatch(r"\w+:\d+", c) for c in chunks), chunks
+        batches = [e["args"]["value"] for e in trace["traceEvents"]
+                   if e.get("cat") == "program_counter" and e["name"] == "engine.batches"]
+        assert batches and max(batches) > 0
     elif case == "aspcf_penalty":
         assert verdict and "skipped" not in verdict[0], verdict
 
