@@ -12,9 +12,11 @@ Batches are padded to a static ``device_batch``; padded rows are dropped on
 the host.  The wire format is the JAX engine's: one packed int16 tensor
 (AFF counts plus a coverage row) and an int16 NEG-minus-AFF delta, added
 in float32 on the device before the rescale; a float32 path remains for
-non-integral inputs.  On CUDA the host buffers are pinned, the copies are
-``non_blocking`` and each part of a slice records one CUDA event that
-``result()`` waits on; on the CPU everything runs synchronously.
+non-integral inputs.  The counts are encoded in one pass by ``ops/wire.py``
+straight into host buffers, padded to whole slices.  On
+CUDA the host buffers are pinned, the copies are ``non_blocking`` and each
+part of a slice records one CUDA event that ``result()`` waits on; on the
+CPU everything runs synchronously.
 
 Several devices (``devices=[...]``, the counterpart of the JAX engine's 1-D
 mesh): one replica of the two networks per device.  Every padded slice is
@@ -35,6 +37,7 @@ from clairs_to_tpu_torch import config as cfg
 from clairs_to_tpu_torch.models import bigru, cvt
 from clairs_to_tpu_torch.models.checkpoint import params_from_jax
 from clairs_to_tpu_torch.ops import posterior as post
+from clairs_to_tpu_torch.ops import wire
 from clairs_to_tpu_torch.utils import metrics as tracing
 
 
@@ -235,8 +238,11 @@ class InferenceEngine:
         return np.pad(arr, pad_width, constant_values=value)
 
     def _put(self, arr, replica=0):
-        """Host numpy -> device tensor (pinned, non-blocking on CUDA)."""
+        """Host numpy -> device tensor (pinned, non-blocking on CUDA).  A
+        tensor is a view of a buffer from ``_pack``, already pinned."""
         device = self.devices[replica]
+        if isinstance(arr, torch.Tensor):
+            return arr.to(device, non_blocking=True) if device.type == "cuda" else arr
         t = torch.from_numpy(np.ascontiguousarray(arr))
         if device.type != "cuda":
             return t
@@ -261,6 +267,41 @@ class InferenceEngine:
                 return xi
             return None
         return None
+
+    def _pack(self, x_aff, x_neg, cov_aff, cov_neg):
+        """The int16 wire encoding of a batch, ``(packed, delta)``, padded to
+        whole slices: rows 0-32 of ``packed`` the AFF counts, row 33 columns
+        0/1 the coverages; the delta NEG - AFF, None when ``x_neg`` is None
+        (the views are one).  None when a value does not fit in int16: the
+        batch goes as float32.
+
+        One pass of ``ops/wire.py`` writes it straight into host buffers
+        (pinned on CUDA: the slices' copies read them as they are).  The pass
+        reads int32 C-contiguous views, the decoder's; any other integral
+        view is checked by ``_intify`` and cast to one first."""
+        ca16 = self._intify(cov_aff)
+        cn16 = ca16 if cov_neg is cov_aff or ca16 is None else self._intify(cov_neg)
+        if ca16 is None or cn16 is None:
+            return None
+        views = []
+        for x in (x_aff, x_neg):
+            if x is not None and not wire.takes(x):
+                x = self._intify(x)
+                if x is None:
+                    return None
+                x = np.ascontiguousarray(x, np.int32)
+            views.append(x)
+        rows = -(-x_aff.shape[0] // self.device_batch) * self.device_batch
+        # torch's caching host allocator hands a pinned block out again only
+        # once the copies that read it have finished
+        pin = self.devices[0].type == "cuda"
+        packed = torch.empty((rows, 34, 34), dtype=torch.int16, pin_memory=pin)
+        delta = (None if x_neg is None else
+                 torch.empty((rows, 33, 34), dtype=torch.int16, pin_memory=pin))
+        tracing.count("engine.wire_fused_batches")
+        if not wire.pack(*views, ca16, cn16, packed, delta):
+            return None
+        return packed, delta
 
     def _zero_delta_dev(self, replica=0):
         """Device-resident int16 zero delta for identical AFF/NEG views."""
@@ -290,32 +331,13 @@ class InferenceEngine:
         n = x_aff.shape[0]
         identity = x_neg is x_aff
         x_aff = np.asarray(x_aff)
+        x_neg = x_aff if identity else np.asarray(x_neg)
         cov_aff = np.asarray(cov_aff)
         cov_neg = cov_aff if cov_neg is cov_aff else np.asarray(cov_neg)
         with tracing.span("engine.pack"):
-            xa16 = self._intify(x_aff)
-            ca16 = self._intify(cov_aff) if xa16 is not None else None
-            cn16 = (ca16 if cov_neg is cov_aff else
-                    (self._intify(cov_neg) if ca16 is not None else None))
-            use_int = xa16 is not None and ca16 is not None and cn16 is not None
-            d16 = None
-            if use_int and not identity:
-                xn16 = self._intify(np.asarray(x_neg))
-                if xn16 is None:
-                    use_int = False
-                else:
-                    delta = xn16.astype(np.int32) - xa16
-                    if delta.size and (int(delta.max()) >= 32768
-                                       or int(delta.min()) < -32768):
-                        use_int = False
-                    else:
-                        d16 = delta.astype(np.int16)
-            if use_int:
-                # row 33 columns 2.. are never read: np.empty leaves them unset
-                packed = np.empty((n, 34, 34), np.int16)
-                packed[:, :33, :] = xa16
-                packed[:, 33, 0] = ca16
-                packed[:, 33, 1] = cn16
+            wire_enc = self._pack(x_aff, None if identity else x_neg, cov_aff, cov_neg)
+        use_int = wire_enc is not None
+        packed, d16 = wire_enc if use_int else (None, None)
         if self._on_cuda:
             set_matmul_precision(self.matmul_precision)
         handles, h2d_bytes = [], 0
@@ -324,8 +346,7 @@ class InferenceEngine:
             ni = min(self.device_batch, n - i)
             with tracing.span("engine.upload"):
                 if use_int:
-                    padded = (self._pad(packed[sl]),
-                              None if d16 is None else self._pad(d16[sl]))
+                    padded = (packed[sl], None if d16 is None else d16[sl])
                 else:
                     padded = (self._pad(np.asarray(x_aff[sl], np.float32)),
                               None if identity else self._pad(np.asarray(x_neg[sl], np.float32)),

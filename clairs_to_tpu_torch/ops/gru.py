@@ -58,6 +58,30 @@ def _nvcc():
                        "csrc/gru_bwd.cu with the CUDA toolkit (set CUDA_HOME)")
 
 
+def stale(src, so):
+    """Whether the library ``so`` is missing or older than its source ``src``."""
+    return not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src)
+
+
+def start_compile(argv, so):
+    """Start the compiler ``argv`` writing to a temporary name beside ``so``
+    (two processes may build at once); ``finish_compile`` renames it."""
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    return tmp, subprocess.Popen([*argv, "-o", tmp], stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
+def finish_compile(job, so):
+    """Wait for a ``start_compile`` job and, if it succeeded, move its library
+    to ``so``.  Returns (returncode, stdout, stderr)."""
+    tmp, proc = job
+    out, err = proc.communicate()
+    if proc.returncode == 0:
+        os.replace(tmp, so)
+    return proc.returncode, out, err
+
+
 def build(names=("gru", "gru_bwd"), verbose=False):
     """Compile (each library whose source is newer than it, one nvcc each,
     all at once) and load the kernels named: "gru" (the forward) and
@@ -66,27 +90,22 @@ def build(names=("gru", "gru_bwd"), verbose=False):
     Returns the compiler's diagnostics (``-Xptxas -v`` when ``verbose``),
     or "" when every library was already current.  Raises if one fails."""
     with _lock:
-        procs = {}
+        jobs = {}
         for name in names:
             src, so = _paths(name)
-            if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
-                os.makedirs(BUILD_DIR, exist_ok=True)
-                tmp = f"{so}.{os.getpid()}.tmp"
+            if stale(src, so):
                 cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                       "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, src]
+                       "-O3", "-shared", "-Xcompiler", "-fPIC", src]
                 if verbose:
                     cmd[1:1] = ["-Xptxas", "-v"]
-                procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                     stderr=subprocess.PIPE, text=True))
+                jobs[name] = start_compile(cmd, so)
         log, failed = "", []
-        for name, (tmp, proc) in procs.items():
-            out, err = proc.communicate()
+        for name, job in jobs.items():
             src, so = _paths(name)
-            if proc.returncode != 0:
-                failed.append(f"nvcc failed on {os.path.basename(src)} "
-                              f"({proc.returncode}):\n{err}")
+            rc, out, err = finish_compile(job, so)
+            if rc != 0:
+                failed.append(f"nvcc failed on {os.path.basename(src)} ({rc}):\n{err}")
                 continue
-            os.replace(tmp, so)
             log += f"{os.path.basename(src)}:\n{out}{err}"
         if failed:
             raise RuntimeError("\n".join(failed))

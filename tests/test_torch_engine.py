@@ -16,6 +16,7 @@ from clairs_to_tpu_torch.infer.engine import InferenceEngine, recover_strand_cou
 from clairs_to_tpu_torch.models import bigru as tbigru
 from clairs_to_tpu_torch.models import cvt as tcvt
 from clairs_to_tpu_torch.ops import posterior as tpost
+from clairs_to_tpu_torch.ops import wire
 
 torch.set_num_threads(1)
 # probabilities agree to float32 rounding of differently ordered sums; they
@@ -64,11 +65,25 @@ def _same(a, b):
     np.testing.assert_array_equal(b.reverse_acgt, a.reverse_acgt)
 
 
-@pytest.mark.parametrize("case", ["identity_int16", "delta_int16", "float32"])
+def _args(case, x, cov, seed):
+    """(x_aff, x_neg, cov_aff, cov_neg) of a test case: one view or two; the
+    ``*_int32`` cases hand over int32 views, as the decoder does."""
+    if case.endswith("int32"):
+        x = x.astype(np.int32)
+    if case.startswith("identity"):
+        return x, x, cov, cov
+    xn = x + np.random.default_rng(seed).integers(-3, 4, size=x.shape).astype(x.dtype)
+    return x, xn, cov, cov + 7
+
+
+@pytest.mark.parametrize("case", ["identity_int16", "delta_int16", "float32",
+                                  "identity_int32", "delta_int32"])
 def test_engine_matches_jax(engines, case):
     je, te = engines
     x, cov = _batch(40, seed=1, integral=case != "float32")
-    if case == "identity_int16":
+    if case.endswith("int32"):
+        args = _args(case, x, cov, 2)
+    elif case == "identity_int16":
         args = (x, x, cov, cov)
     else:
         xn = x + np.random.default_rng(2).integers(-3, 4, size=x.shape)
@@ -101,6 +116,165 @@ def test_int16_and_float32_paths_agree(engines):
     b = te.run_batch(x, x + 0.0, cov, cov.copy())   # float inputs, two views
     np.testing.assert_allclose(b.p_aff, a.p_aff, rtol=1e-6, atol=1e-7)
     np.testing.assert_allclose(b.p_neg, a.p_neg, rtol=1e-6, atol=1e-7)
+
+
+# ---- the one-pass wire routine (ops/wire.py) -------------------------------
+
+def _views(n, seed):
+    """int32 AFF and NEG views as the decoder hands them over, and coverages."""
+    rng = np.random.default_rng(seed)
+    xa = rng.integers(-40, 40, size=(n, 33, 34)).astype(np.int32)
+    xn = (xa + rng.integers(-3, 4, size=xa.shape)).astype(np.int32)
+    return xa, xn, rng.integers(10, 120, size=n).astype(np.float32)
+
+
+def _numpy_wire(xa, xn, ca, cn):
+    """The wire encoding as NumPy builds it: int16 casts, the delta in int32."""
+    packed = np.zeros((xa.shape[0], 34, 34), np.int16)
+    packed[:, :33] = xa.astype(np.int16)
+    packed[:, 33, 0] = ca
+    packed[:, 33, 1] = cn
+    return packed, None if xn is None else (xn.astype(np.int32) - xa).astype(np.int16)
+
+
+def _limits_views():
+    """Counts and deltas at both ends of int16."""
+    rng = np.random.default_rng(22)
+    xa = rng.choice(np.array([-32768, 32767, -1, 0, 5], np.int32), size=(20, 33, 34))
+    # NEG - AFF: -32768 at 32767, 32767 at -32768, -32767 at -1, 32767 at 0
+    xn = np.select([xa == 32767, xa == -32768, xa == -1, xa == 0],
+                   [-1, -1, -32768, 32767], xa).astype(np.int32)
+    return xa, xn, rng.integers(10, 120, size=20).astype(np.float32)
+
+
+WIRE_CASES = {"random": lambda: _views(40, 20), "int16_limits": _limits_views,
+              "padding": lambda: _views(10, 23), "more_rows": lambda: _views(150, 24),
+              "identity": lambda: _views(40, 25)}
+
+
+@pytest.mark.parametrize("case", list(WIRE_CASES))
+def test_wire_routine_matches_the_numpy_encoding(engines, case):
+    """The routine's packed rows 0-32, row 33 columns 0-1 and delta equal
+    NumPy's encoding; the rows that pad the last slice are zero."""
+    _, te = engines
+    xa, xn, cov = WIRE_CASES[case]()
+    if case == "identity":
+        xn = None
+    n, cov_neg = xa.shape[0], cov + 3
+    got = te._pack(xa, xn, cov, cov_neg)
+    assert isinstance(got[0], torch.Tensor)       # the routine ran
+    packed, delta = (None if t is None else t.numpy() for t in got)
+    rows = -(-n // te.device_batch) * te.device_batch
+    assert packed.shape == (rows, 34, 34)
+    want_p, want_d = _numpy_wire(xa, xn, cov.astype(np.int16), cov_neg.astype(np.int16))
+    np.testing.assert_array_equal(packed[:n, :33], want_p[:, :33])
+    np.testing.assert_array_equal(packed[:n, 33, :2], want_p[:, 33, :2])
+    assert not packed[n:].any()
+    if xn is None:
+        assert delta is None
+    else:
+        assert delta.shape == (rows, 33, 34) and not delta[n:].any()
+        np.testing.assert_array_equal(delta[:n], want_d)
+
+
+def test_a_delta_out_of_int16_takes_the_float_path(engines):
+    """A NEG - AFF of 32768 is reported, and the batch goes as float32 with
+    the answers the routine's path gives for every other row."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from clairs_to_tpu_torch.utils import metrics as tracing
+
+    _, te = engines
+    xa, xn, cov = _views(12, 26)
+    c16 = cov.astype(np.int16)
+    xa[5, 3, 4], xn[5, 3, 4] = -16384, 16383
+    out = (torch.empty((64, 34, 34), dtype=torch.int16),
+           torch.empty((64, 33, 34), dtype=torch.int16))
+    assert wire.pack(xa, xn, c16, c16, *out)           # 32767 fits
+    fits = te.run_batch(xa, xn.copy(), cov, cov)
+    for a, b in ((16384, -16384), (-32768, -1), (32767, 32767)):   # -32768, 32767, 0
+        xa[5, 3, 4], xn[5, 3, 4] = a, b
+        assert wire.pack(xa, xn, c16, c16, *out)
+    # -32769 and a count of 32768 or -32769 do not fit either
+    for a, b in ((16384, -16385), (32768, 32767), (0, -32769)):
+        xa[5, 3, 4], xn[5, 3, 4] = a, b
+        assert not wire.pack(xa, xn, c16, c16, *out), (a, b)
+    for a in (32768, -32769):                          # one view
+        xa[5, 3, 4] = a
+        assert not wire.pack(xa, None, c16, c16, out[0], None), a
+    xa[5, 3, 4], xn[5, 3, 4] = -16384, 16384
+    assert not wire.pack(xa, xn, c16, c16, *out)       # 32768 does not
+    before = tracing.RECORDER.counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = te.run_batch(xa, xn, cov, cov)
+    after = tracing.RECORDER.counters()
+    for key in ("engine.float_path_batches", "engine.wire_fused_batches"):
+        assert after[key] - before.get(key, 0) == 1, key
+    keep = np.arange(12) != 5
+    for field in ("p_aff", "p_neg", "posterior", "forward_acgt", "reverse_acgt"):
+        np.testing.assert_array_equal(getattr(got, field)[keep], getattr(fits, field)[keep])
+
+
+def test_other_dtypes_and_layouts_go_through_the_routine_as_int32(engines, monkeypatch):
+    """int64, int16 (the warm-ups'), integral float32 and strided views are
+    cast to int32 C-contiguous views for the routine, and give the answers
+    of the decoder's int32 views; counts past int16 (which a cast to int32
+    could wrap back into range) send the batch down the float path."""
+    _, te = engines
+    xa, xn, cov = _views(30, 27)
+    want = te.run_batch(xa, xn, cov, cov)
+    seen = []
+    pack = wire.pack
+
+    def spy(x_aff, x_neg, *rest):
+        seen.append((x_aff, x_neg))
+        return pack(x_aff, x_neg, *rest)
+
+    monkeypatch.setattr(wire, "pack", spy)
+    wide = np.zeros((30, 33, 68), np.int32)
+    wide[:, :, ::2] = xa                             # an int32 view with strides
+    for args in ((xa.astype(np.int64), xn.astype(np.int64), cov, cov),
+                 (wide[:, :, ::2], xn, cov, cov),
+                 (xa, xn.astype(np.int16), cov, cov),
+                 (xa.astype(np.float32), xn.astype(np.float32), cov, cov)):
+        seen.clear()
+        got = te.run_batch(*args)
+        assert len(seen) == 1 and all(wire.takes(v) for v in seen[0])
+        for field in ("p_aff", "p_neg", "posterior", "forward_acgt", "reverse_acgt"):
+            np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+    big = xa.astype(np.int64)
+    big[3, 2, 1] += 2 ** 32                          # int32 would read it as in range
+    seen.clear()
+    assert te._pack(big, xn, cov, cov) is None and not seen
+    z = np.zeros((1, 33, 34), np.int16)              # the warm-ups' batch
+    packed, delta = te._pack(z, z, np.ones(1, np.float32), np.ones(1, np.float32))
+    assert len(seen) == 1 and not delta.numpy().any()
+    assert packed.numpy()[0, 33, :2].tolist() == [1, 1] and not packed.numpy()[0, :33].any()
+
+
+def test_three_batches_in_flight_match_their_synchronous_runs(engines):
+    """Three batches dispatched before any result is taken each give what
+    the batch gives alone: no host buffer is reused while a batch needs it."""
+    _, te = engines
+    batches = [_views(64, 28), _views(100, 29), _views(30, 30)]
+    pending = [te.run_batch_async(xa, xn, cov, cov + 1) for xa, xn, cov in batches]
+    results = [p.result() for p in pending]
+    for (xa, xn, cov), got in zip(batches, results):
+        want = te.run_batch(xa, xn, cov, cov + 1)
+        for field in ("p_aff", "p_neg", "posterior", "forward_acgt", "reverse_acgt"):
+            np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+
+
+def test_a_failed_wire_build_raises(monkeypatch, tmp_path):
+    """A routine that does not compile raises with the compiler's message;
+    the engine never falls back in silence."""
+    broken = tmp_path / "wire.cpp"
+    broken.write_text("this is not C++\n")
+    monkeypatch.setattr(wire, "SOURCE", str(broken))
+    monkeypatch.setattr(wire, "_SO", str(tmp_path / "libwire.so"))
+    monkeypatch.setattr(wire, "_fn", None)
+    with pytest.raises(RuntimeError, match="building wire.cpp failed"):
+        wire.build()
 
 
 def test_fused_matches_jax(engines):
@@ -145,7 +319,8 @@ def replica_engines(engines):
 
 
 @pytest.mark.parametrize("n", [40, 150])   # not a multiple of 3; more than device_batch
-@pytest.mark.parametrize("case", ["identity_int16", "delta_int16", "float32"])
+@pytest.mark.parametrize("case", ["identity_int16", "delta_int16", "float32",
+                                  "identity_int32", "delta_int32"])
 def test_replicas_match_one_device_and_jax_mesh(engines, replica_engines, case, n):
     _, te = engines
     jm, tm = replica_engines
@@ -153,7 +328,9 @@ def test_replicas_match_one_device_and_jax_mesh(engines, replica_engines, case, 
     assert tm.device_batch == jm.device_batch == 66 and len(tm.devices) == 3
     assert tm.aff_models[1] is not tm.aff_models[0]
     x, cov = _batch(n, seed=11, integral=case != "float32")
-    if case == "identity_int16":
+    if case.endswith("int32"):
+        args = _args(case, x, cov, 12)
+    elif case == "identity_int16":
         args = (x, x, cov, cov)
     else:
         xn = x + np.random.default_rng(12).integers(-3, 4, size=x.shape)

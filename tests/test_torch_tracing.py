@@ -83,12 +83,17 @@ def test_engine_batches_record_every_span_with_parent_and_one_id(engine):
             if parent is not None:
                 assert parent.start <= s.start <= s.end <= parent.end
             assert s.thread == threading.get_native_id()
-    # one upload, launch, wait and consume a slice: the first batch has two
+    # one launch, wait and consume a slice and two uploads (the slice's, then
+    # the one replica's): the first batch has two slices; one pack a batch
     assert sum(1 for s in spans if s.id == ids[0] and s.name == "engine.launch") == 2
     assert sum(1 for s in spans if s.id == ids[1] and s.name == "engine.consume") == 1
+    for bid, slices in zip(ids, (2, 1)):
+        assert sum(1 for s in spans if s.id == bid and s.name == "engine.pack") == 1
+        assert sum(1 for s in spans if s.id == bid and s.name == "engine.upload") == 2 * slices
     counts = _new_counts(before)
     assert counts["engine.batches"] == 2 and counts["engine.rows"] == 45
     assert counts["engine.rows_padded"] == 96 and counts["engine.float_path_batches"] == 0
+    assert counts["engine.wire_fused_batches"] == 2
     assert counts["engine.h2d_bytes"] == 0        # the CPU uploads nothing
 
 
@@ -117,6 +122,25 @@ def test_engine_counts_the_float_path(engine):
         engine.run_batch(*_batch(3, 3, integral=False))
     counts = _new_counts(before)
     assert counts["engine.float_path_batches"] == 1 and counts["engine.rows"] == 3
+
+
+def test_the_wire_routine_counts_each_batch_it_packs(engine):
+    """``engine.wire_fused_batches``: one for each batch of integral views,
+    two or one, int32 or cast to it; none for non-integral inputs, and
+    nothing without a profiler."""
+    x, xn, cov, _ = _batch(6, 9)
+    before = tracing.RECORDER.counters()
+    with _profiled():
+        engine.run_batch(x, xn, cov, cov)                     # two int32 views
+        engine.run_batch(x, x, cov, cov)                      # one
+        engine.run_batch(x.astype(np.int64), xn, cov, cov)    # cast to int32
+        engine.run_batch(*_batch(6, 9, integral=False))       # float32
+    counts = _new_counts(before)
+    assert counts["engine.wire_fused_batches"] == 3 and counts["engine.batches"] == 4
+    assert counts["engine.float_path_batches"] == 1
+    before = tracing.RECORDER.counters()
+    engine.run_batch(x, xn, cov, cov)
+    assert tracing.RECORDER.counters() == before
 
 
 def test_trainer_step_records_three_children():
