@@ -984,7 +984,7 @@ def phase_train(card, ds):
     from clairs_to_tpu_torch.bench.grad_check import compare, step_grads, to_float64, train_batch
     from clairs_to_tpu_torch.models.checkpoint import load_checkpoint
     from clairs_to_tpu_torch.ops import gru
-    from clairs_to_tpu_torch.train import DualTrainer, TrainConfig
+    from clairs_to_tpu_torch.train import CAPTURE_WARMUP_STEPS, DualTrainer, TrainConfig
 
     res = {}
     # (a) one step, card against CPU, from the same weights; the card's step
@@ -1090,10 +1090,12 @@ def phase_train(card, ds):
         raise AssertionError(f"train: predict_probs with the kernel disagrees ({err:.3e})")
     res["predict_max_abs_err"] = err
     # 4 launches of each kernel a training step (two bidirectional layers),
-    # 1280 // 256 steps an epoch, 2 epochs, 2 modes; 4 forward launches a NEG
-    # forward, one forward per 512 rows: train's calibration forwards 3000
-    # rows a mode, (d) 800
-    steps = 2 * 2 * (1280 // 256)
+    # counted as the host launches them: each mode's fit captures its step
+    # once, after CAPTURE_WARMUP_STEPS eager steps, and its replays launch
+    # nothing from the host; 2 modes; 4 forward launches a NEG forward, one
+    # forward per 512 rows: train's calibration forwards 3000 rows a mode,
+    # (d) 800
+    steps = 2 * (CAPTURE_WARMUP_STEPS + 1)
     batches = 2 * -(-3000 // 512) + -(-len(x) // 512)
     want = (4 * (steps + batches), 4 * steps)
     log(f"[train] launches_by_path[\"train\"] = {res['launches']} forward, "

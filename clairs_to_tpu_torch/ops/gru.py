@@ -280,10 +280,14 @@ _active = {}   # (H, device index) -> clusters of the backward kernel's shape th
 def bwd_launch_geometry(H, B, device):
     """``bwd_geometry`` on the CUDA ``device``, whose clusters at once the
     kernel's library reports (cudaOccupancyMaxActiveClusters), cached per
-    (H, device)."""
+    (H, device).  The query is not made inside a CUDA graph's capture: an
+    eager step fills the cache first (train.py's warm-up does)."""
     device = torch.device(device)
     key = (H, device.index if device.index is not None else torch.cuda.current_device())
     if key not in _active:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"gru_direction_backward: no occupancy known for hidden {H} on "
+                               f"device {key[1]}; run one step eagerly before capturing one")
         fn = _entry("gru_bwd", "gru_direction_backward_max_clusters")
         cluster = bwd_cluster(H)
         n = ctypes.c_int(0)
@@ -347,7 +351,10 @@ def gru_direction(x_gates, w_hh_t, b_hh, reverse=False):
     """One GRU direction: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.  Same arguments as ``gru_direction_plain``.
     When grad mode is on and an input requires grad it runs through
-    ``GRUDirection``, whose backward is ``gru_direction_backward``."""
+    ``GRUDirection``, whose backward is ``gru_direction_backward``.
+    ``gru_direction.launches`` counts the kernel's launches as the host
+    makes them: a launch captured in a CUDA graph counts once, at capture,
+    and not at each replay."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x_gates, w_hh_t, b_hh)):
         return GRUDirection.apply(x_gates, w_hh_t, b_hh, reverse)
     return _forward(x_gates, w_hh_t, b_hh, reverse)
@@ -437,7 +444,9 @@ def gru_direction_backward(x_gates, w_hh_t, b_hh, out, grad_out, reverse=False):
     """The gradients of ``gru_direction``: the CUDA kernel, then dW_hh^T and
     db_hh as one matmul and one sum, for CUDA tensors; the plain version for
     CPU tensors.  Same arguments and results as
-    ``gru_direction_backward_plain``."""
+    ``gru_direction_backward_plain``.  ``gru_direction_backward.launches``
+    counts the backward kernel's launches as the host makes them: once at a
+    CUDA graph's capture, not at each replay."""
     grad_x, grad_hg = gru_direction_backward_kernel(x_gates, w_hh_t, b_hh, out, grad_out,
                                                     reverse)
     return (grad_x, *_weight_grads(out, grad_hg, reverse))

@@ -28,6 +28,11 @@ What the JAX step does, and how it is matched here:
   dropout masks come from a ``torch.Generator``, which cannot reproduce
   ``jax.random``, so the two agree step for step only at dropout 0.
 
+On CUDA a step is the replay of one captured ``torch.cuda.CUDAGraph`` of
+the whole step (``DualTrainer.step``): a step issues some 2,800 kernels, and
+launching them one at a time from the host takes longer than the device
+takes to run them.  The CPU step runs eagerly.
+
 Calibration builds the per-platform likelihood matrix the reference loads
 from likelihood_matrix.txt (call_variants.py:655-796); numpy, copied.
 """
@@ -91,13 +96,44 @@ def _rescale(x, cov):
     return x * scale[:, None, None]
 
 
+# eager steps a capture runs first, on a side stream, as many as
+# torch.cuda.make_graphed_callables runs: the first builds the GRU kernels,
+# fills the backward kernel's occupancy cache (ops/gru.py::bwd_launch_geometry)
+# and creates AdamW's state, none of which may happen inside the capture
+CAPTURE_WARMUP_STEPS = 3
+
+
+def graph_key(x, x_neg, aff_labels, neg_labels, generator, dropout_rate):
+    """What a captured step is valid for: the four inputs' shapes and dtypes,
+    whether the two views are one tensor, the dropout generator (by
+    identity) and the dropout rate."""
+    return (tuple((tuple(t.shape), t.dtype) for t in (x, x_neg, aff_labels, neg_labels)),
+            x_neg is x, generator, dropout_rate)
+
+
+class _StepGraph:
+    """A captured training step: its graph, the static input buffers it
+    reads (the NEG view's buffer is the AFF one's when the views are one
+    tensor) and the loss it writes."""
+
+    def __init__(self, key, graph, inputs, loss):
+        self.key, self.graph, self.inputs, self.loss = key, graph, inputs, loss
+
+    def feed(self, tensors):
+        """Copies the caller's tensors into the static buffers, in stream
+        order (device to device for device tensors), each buffer once."""
+        for dst, src in {id(d): (d, s) for d, s in zip(self.inputs, tensors)}.values():
+            dst.copy_(src)
+
+
 class DualTrainer:
     """Trains AFF (CvT) and NEG (BiGRU) on the same tensors.
 
     ``device``: ``cuda`` unless the caller asks for the CPU; there is no
     fallback.  On CUDA every step and every ``predict_probs`` turns TF32 off
     for matmuls and cuDNN convolutions ("highest"), as the engine does at
-    dispatch.
+    dispatch, and ``step`` replays a captured CUDA graph; AdamW is then the
+    fused, capturable one.
     Weights start from the JAX ``init``'s distributions (not its numbers);
     load others into ``models[...]`` with ``load_state_dict``.
     """
@@ -121,9 +157,11 @@ class DualTrainer:
                         for name, t in m.state_dict(keep_vars=True).items()}
         for t in self.tensors.values():
             t.requires_grad_(True)
+        graphed = {"capturable": True, "fused": True} if self.device.type == "cuda" else {}
         self.opt = torch.optim.AdamW(
             list(self.tensors.values()), lr=self.tc.learning_rate, betas=(0.9, 0.999),
-            eps=1e-8, weight_decay=self.tc.weight_decay)
+            eps=1e-8, weight_decay=self.tc.weight_decay, **graphed)
+        self._graph = None   # the captured step (CUDA), made at a key's first step
 
     def _set_precision(self):
         if self.device.type == "cuda":
@@ -144,25 +182,113 @@ class DualTrainer:
 
     def apply_gradients(self):
         """Clip by the global norm, one AdamW step, clear the gradients.
-        Returns the global norm before clipping (a device tensor)."""
+        Under a CUDA graph's capture the gradients stay: they are the
+        graph's buffers, which each replay writes whole.  Returns the global
+        norm before clipping (a device tensor)."""
         grads = [t.grad for t in self.tensors.values()]
         norm = clip_by_global_norm(grads, self.tc.grad_clip)
         self.opt.step()
-        self.opt.zero_grad(set_to_none=True)
+        if not (self.device.type == "cuda" and torch.cuda.is_current_stream_capturing()):
+            self.opt.zero_grad(set_to_none=True)
         return norm
 
     def step(self, x, x_neg, aff_labels, neg_labels, generator=None):
-        """One training step; returns the loss (a device tensor).  Its spans
-        (``utils/metrics.py``): ``train.step`` around ``train.forward``,
-        ``train.backward`` and ``train.optim``."""
+        """One training step; returns the loss (a fresh device tensor).
+
+        On the CPU the step runs eagerly; its spans (``utils/metrics.py``):
+        ``train.step`` around ``train.forward``, ``train.backward`` and
+        ``train.optim``.  On CUDA it replays the step's graph, captured at
+        the first call of its ``graph_key`` (a new key captures anew and
+        frees the old graph): ``train.step`` around ``train.feed`` (the
+        inputs copied into the graph's buffers) and ``train.replay``, and
+        ``train.capture`` before them when it captures.  The replay updates
+        ``tensors`` and AdamW's state in place, draws the dropout masks
+        from ``generator`` at the offsets an eager step would, and leaves
+        each leaf's ``.grad`` holding the step's gradient."""
+        if self.device.type != "cuda":
+            return self._eager_step(x, x_neg, aff_labels, neg_labels, generator)
+        tensors = (x, x_neg, aff_labels, neg_labels)
         with tracing.span("train.step"):
-            with tracing.span("train.forward"):
-                loss = self.loss(x, x_neg, aff_labels, neg_labels, generator)
-            with tracing.span("train.backward"):
-                loss.backward()
-            with tracing.span("train.optim"):
-                self.apply_gradients()
+            key = graph_key(*tensors, generator, self.tc.dropout_rate)
+            if self._graph is None or self._graph.key != key:
+                self._graph = None   # the old graph's memory goes back first
+                self._graph = self._capture(key, tensors, generator)
+            with tracing.span("train.feed"):
+                self._graph.feed(tensors)
+            with tracing.span("train.replay"):
+                self._graph.graph.replay()
+                tracing.count("train.replays")
+            return self._graph.loss.clone()
+
+    def _update(self, x, x_neg, aff_labels, neg_labels, generator):
+        """The step's work under its three spans; returns the loss."""
+        with tracing.span("train.forward"):
+            loss = self.loss(x, x_neg, aff_labels, neg_labels, generator)
+        with tracing.span("train.backward"):
+            loss.backward()
+        with tracing.span("train.optim"):
+            self.apply_gradients()
         return loss.detach()
+
+    def _eager_step(self, x, x_neg, aff_labels, neg_labels, generator=None):
+        """One step run op by op: the CPU's step, and on CUDA the step the
+        graph is held to."""
+        with tracing.span("train.step"):
+            return self._update(x, x_neg, aff_labels, neg_labels, generator)
+
+    def _capture(self, key, tensors, generator):
+        """Captures one step on static copies of ``tensors`` and returns it
+        as a ``_StepGraph``.  The eager warm-up steps that capture needs
+        move the leaves, AdamW's state and the generator; all three are put
+        back in place afterwards, so the first replay takes the step an
+        eager step would take from the state the caller left."""
+        with tracing.span("train.capture"), torch.cuda.device(self.device):
+            tracing.count("train.captures")
+            inputs = [torch.empty(t.shape, dtype=t.dtype, device=self.device).copy_(t)
+                      for t in tensors]
+            if tensors[1] is tensors[0]:
+                inputs[1] = inputs[0]
+            # the warm-up would add to the gradients an earlier graph left
+            self.opt.zero_grad(set_to_none=True)
+            saved = self._snapshot(generator)
+            graph = torch.cuda.CUDAGraph()
+            try:
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    for _ in range(CAPTURE_WARMUP_STEPS):
+                        self._update(*inputs, generator)
+                torch.cuda.current_stream().wait_stream(side)
+                if generator is not None:
+                    graph.register_generator_state(generator)
+                with torch.cuda.graph(graph):
+                    loss = self._update(*inputs, generator)
+            finally:
+                self._restore(saved, generator)
+        return _StepGraph(key, graph, inputs, loss)
+
+    def _snapshot(self, generator):
+        """Copies of every leaf, of AdamW's state and the generator's state."""
+        return ({k: t.detach().clone() for k, t in self.tensors.items()},
+                {t: {k: v.clone() for k, v in self.opt.state[t].items()}
+                 for t in self.tensors.values() if self.opt.state.get(t)},
+                None if generator is None else generator.get_state())
+
+    @torch.no_grad()
+    def _restore(self, saved, generator):
+        """Writes a ``_snapshot`` back into the same storages (a captured
+        graph reads them).  A leaf that had no AdamW state gets its state
+        zeroed, which is the state AdamW creates (step 0, both moments 0)."""
+        leaves, opt_state, gen_state = saved
+        for name, t in self.tensors.items():
+            t.copy_(leaves[name])
+            for k, v in self.opt.state.get(t, {}).items():
+                if t in opt_state:
+                    v.copy_(opt_state[t][k])
+                else:
+                    v.zero_()
+        if generator is not None:
+            generator.set_state(gen_state)
 
     def fit(self, x, somatic_allele, epochs=None, batch_size=None, log_every=0,
             rescale_cov=None, positive_fraction=0.3, x_neg=None):

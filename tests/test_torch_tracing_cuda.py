@@ -1,7 +1,8 @@
 """The port's spans on the card: the profiler's flag under a CUDA-only
 profile (the benchmark's traced window runs one), the engine's spans under
-it, and ``device_trace``'s anchor, which puts a batch's kernels inside its
-spans on the shared clock.
+it, a graphed training step's spans and kernels under it, and
+``device_trace``'s anchor, which puts a batch's kernels inside its spans on
+the shared clock.
 
 Marked ``cuda``; each test skips where there is no GPU.  Run them on a
 machine with an H100 with
@@ -20,6 +21,7 @@ from torch.profiler import ProfilerActivity, profile
 from clairs_to_tpu_torch.infer.engine import InferenceEngine
 from clairs_to_tpu_torch.models import bigru, cvt
 from clairs_to_tpu_torch.ops import posterior as post
+from clairs_to_tpu_torch.train import DualTrainer, TrainConfig
 from clairs_to_tpu_torch.utils import metrics as tracing
 
 pytestmark = pytest.mark.cuda
@@ -67,6 +69,36 @@ def test_the_engine_records_its_spans_under_a_cuda_only_profile(engine):
     # the packed int16 tensor (34 x 34) and the int16 delta (33 x 34) a row
     assert after["engine.h2d_bytes"] - before.get("engine.h2d_bytes", 0) == \
         1024 * (34 * 34 + 33 * 34) * 2
+
+
+def test_a_graphed_training_step_records_feed_and_replay_under_a_cuda_only_profile(engine):
+    """Past its capture a step on the card is ``train.step`` around
+    ``train.feed`` and ``train.replay``, and the profile sees the replayed
+    graph's kernels one by one: the backward GRU kernel four times a step."""
+    trainer = DualTrainer("snv", TrainConfig(dropout_rate=0.3), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.integers(0, 40, size=(64, 33, 34)).astype(np.float32)).cuda()
+    labels = torch.from_numpy(rng.integers(0, 2, size=(64, 4))).cuda()
+    trainer.step(x, x, labels, 1 - labels, generator=gen)     # the capture
+    before = tracing.RECORDER.counters()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            trainer.step(x, x, labels, 1 - labels, generator=gen)
+        torch.cuda.synchronize()
+    spans = tracing.RECORDER.spans(t0)
+    assert [s.name for s in spans] == ["train.feed", "train.replay", "train.step"] * 2
+    for i in (0, 3):
+        feed, replay, step = spans[i:i + 3]
+        assert step.parent is None and feed.parent == replay.parent == step.sid
+        assert step.start <= feed.start <= feed.end <= replay.start <= replay.end <= step.end
+    after = tracing.RECORDER.counters()
+    assert after["train.replays"] - before.get("train.replays", 0) == 2
+    assert after.get("train.captures", 0) == before.get("train.captures", 0)
+    cuda = torch.autograd.DeviceType.CUDA
+    names = [e.name() for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
+    assert sum("gru_direction_backward_kernel" in n for n in names) == 8
 
 
 def test_device_trace_puts_the_batch_kernels_inside_its_spans(engine, tmp_path):
