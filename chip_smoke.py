@@ -23,7 +23,17 @@ Phases, each fatal on failure:
      With --prev-bwd-source, an earlier gru_bwd.cu (the C entry point of
      the first backward kernel: W_hh^T and W_hh unpacked, no geometry) is
      built beside it, held to the new kernel within 1e-5 and the two are
-     timed in turns at each of the four shapes: old, new, new, old;
+     timed in turns at each of the four shapes: old, new, new, old.  Then
+     the CvT's depthwise projection kernels (csrc/dwproj.cu) at the flagship
+     SNV CvT's 26 projections in the net's layouts, B=800 and B=8192:
+     against dwproj_plain under autograd within 1e-5, the backward bit-equal
+     over two runs, and each projection's forward and forward + backward
+     timed in a captured CUDA graph beside the plain version, the library
+     (F.conv2d then x * scale + shift) and the byte bound; phases 3, 9 and
+     10 check one forward launch a projection (and in training one
+     backward), and every ``run`` of phases 4 to 11 that the projections'
+     launches lie between 3 and 6.5 times the GRU forward's (12 and 26
+     projections against 4 GRU launches a batch);
   3. the engine's forward on the flagship ONT SNV and indel weights at
      device_batch 8192, with the kernel against the plain GRU;
   4. ``clairs_to_tpu_torch run -p ont`` with every post-calling stage opted
@@ -46,10 +56,11 @@ Phases, each fatal on failure:
      each request's seconds stand beside the batch run's (WARM_SAVING);
   8. two processes on the one card: ranks 0 and 1 of one coordinator on
      loopback as ``python -m clairs_to_tpu_torch run`` children with
-     ``--chunk_num 4``, started with the kernel and the two C++ libraries of
-     an ONT run deleted, so both build them at once.  Both must own chunks and launch
-     the kernel, only rank 0 may write the output, and the output must equal
-     a single-process run's;
+     ``--chunk_num 4``, started with the two forward kernels (the GRU's and
+     the depthwise projection's) and the two C++ libraries of an ONT run
+     deleted, so both build them at once.  Both must own chunks and launch
+     the kernels, only rank 0 may write the output, and the output must
+     equal a single-process run's;
   9. replicas on the one card: an engine with ``devices=[cuda:0, cuda:0]``
      against the one-device engine at 8192 rows (8 launches a forward
      instead of 4, the split, the per-part events);
@@ -80,8 +91,9 @@ Phases, each fatal on failure:
      the card, one chunk's shards deleted and the first command again with
      ``--resume`` (one chunk called again, its dump lines appended, the first
      run's rows).  The kernel must launch in both card runs.
-Each path's GRU launches (forward and backward) are counted from 0 just before it.  Prints the card's name and power
-limit, a ``kernels`` JSON line, and as the last line ``{"ok": true,
+Each path's launches of the GRU kernels and the depthwise projection
+kernels (forward and backward) are counted from 0 just before it.  Prints
+the card's name and power limit, a ``kernels`` JSON line, and as the last line ``{"ok": true,
 "device": {...}}``.  Exits non-zero without a GPU.  Working files go under
 build/chip_smoke/ in the checkout.
 """
@@ -114,6 +126,7 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 KERNEL_TOL = 1e-5     # kernel vs plain GRU outputs, fp32 both
 BWD_TOL = 1e-5        # max |Δ| / max |ref| of each gradient, backward kernel vs plain
+DWPROJ_TOL = 1e-5     # the same, depthwise projection kernels vs dwproj_plain under autograd
 ENGINE_TOL = 5e-5     # class-1 probabilities, kernel engine vs plain-GRU engine
 REPLICA_TOL = 5e-5    # class-1 probabilities, two replicas vs one device
 TRAIN_TOL = 1e-4      # relative: loss and gradient global norm, card vs CPU step
@@ -208,11 +221,10 @@ def _rel(got, want):
 
 def start_prev_build(src, name="libgru_prev.so"):
     """Start nvcc on an earlier kernel source; returns (process, library path)."""
-    from clairs_to_tpu_torch.ops import gru
+    from clairs_to_tpu_torch.ops import _native
 
     so = os.path.join(WORK, name)
-    cmd = [gru._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-o", so, os.path.abspath(src)]
+    cmd = [*_native.nvcc_command(os.path.abspath(src)), "-o", so]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so
 
 
@@ -263,10 +275,15 @@ def load_prev_bwd(build):
 
 
 def phase_build(gru):
+    from clairs_to_tpu_torch.ops import dwproj
+
     t0 = time.time()
     diag = gru.build(verbose=True)
     log(f"[build] gru.cu and gru_bwd.cu built (one nvcc each, at once) and loaded in "
         f"{time.time() - t0:.2f} s")
+    t0 = time.time()
+    diag += dwproj.build(verbose=True)
+    log(f"[build] dwproj.cu built and loaded in {time.time() - t0:.2f} s")
     for line in diag.splitlines():
         if any(k in line for k in ("registers", "spill", "smem", ".cu:", "Compiling entry")):
             log(f"[build] {line.strip()}")
@@ -400,6 +417,130 @@ def phase_backward(gru, dev, prev=None):
     return dict(max_rel_err=worst_rel, max_abs_err=worst_abs), timings
 
 
+def graph_ms(fn, reps=20, iters=5):
+    """Device ms of one ``fn()``: ``reps`` calls captured in one CUDA graph
+    (after three eager calls on a side stream), replayed ``iters`` times
+    between two events.  So the host's launch cost is left out, as in the
+    training step's graph, and inputs of a few MB stay in the 50 MB L2."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
+def _dwproj_calls(dev):
+    """(C, W, stride, channels-last) of each of the flagship SNV CvT's
+    depthwise projections in one forward, in the layouts the net gives them."""
+    from clairs_to_tpu_torch.models import cvt
+    from clairs_to_tpu_torch.ops.dwproj import dwproj
+
+    calls = []
+
+    def spy(x, weight, scale, shift, stride):
+        cl = not x.is_contiguous() and x.is_contiguous(memory_format=torch.channels_last)
+        calls.append((x.shape[1], x.shape[3], stride, cl))
+        return dwproj(x, weight, scale, shift, stride)
+    model = cvt.CvT(cvt.SNV_CVT_CONFIG).reset_parameters(torch.Generator().manual_seed(0))
+    real, cvt.dwproj = cvt.dwproj, spy
+    try:
+        with torch.no_grad():
+            model.to(dev)(torch.zeros(2, 33, 34, device=dev))
+    finally:
+        cvt.dwproj = real
+    return calls
+
+
+def phase_dwproj(dev):
+    """Phase 2, the depthwise projection kernels (csrc/dwproj.cu) at the
+    flagship SNV CvT's 26 projections, in the net's layouts, at B=800 (a
+    training step) and B=8192 (an engine batch): the kernel pair against
+    dwproj_plain under autograd (output and every gradient within 1e-5 of
+    the largest reference value), two backward runs bit-equal; then each
+    distinct projection timed by ``graph_ms``, forward alone and forward +
+    backward (autograd.grad of x, weight, scale, shift), beside the plain
+    version and the library (F.conv2d groups=C, then x * scale + shift),
+    with the byte bound (x read and y written in the forward; x, g read and
+    dx written in the backward; at 3.35 TB/s).  Returns per-shape rows and
+    the sums over the 26 projections."""
+    from collections import Counter
+
+    import torch.nn.functional as F
+
+    from clairs_to_tpu_torch.ops import dwproj as D
+
+    def lib(x, w, scale, shift, stride):
+        out = F.conv2d(x, w, stride=(1, stride), padding=(1, 1), groups=x.shape[1])
+        return out * scale.reshape(1, -1, 1, 1) + shift.reshape(1, -1, 1, 1)
+
+    calls = Counter(_dwproj_calls(dev))
+    worst, res = 0.0, {}
+    for B in (800, 8192):
+        rows, totals = [], Counter()
+        for (C, W, stride, cl), n in calls.items():
+            gen = torch.Generator(device=dev).manual_seed(B + C + W + stride)
+            x = torch.randn(B, C, 1, W, device=dev, generator=gen)
+            if cl:
+                x = x.contiguous(memory_format=torch.channels_last)
+            args = [x, 0.3 * torch.randn(C, 1, 3, 3, device=dev, generator=gen),
+                    0.5 + torch.rand(C, device=dev, generator=gen),
+                    torch.randn(C, device=dev, generator=gen)]
+            leaves = [t.clone().requires_grad_(True) for t in args]
+            Wo = D.out_width(W, stride)
+            g = torch.randn(B, C, 1, Wo, device=dev, generator=gen)
+            got = D.dwproj(*leaves, stride)
+            got_grads = torch.autograd.grad(got, leaves, g)
+            again = D.dwproj_backward(args[0], args[1], args[2], g, stride)
+            want = D.dwproj_plain(*leaves, stride)
+            want_grads = torch.autograd.grad(want, leaves, g)
+            torch.cuda.synchronize()
+            errs = [_rel(got.detach(), want.detach())] + [
+                _rel(a, b) for a, b in zip(got_grads, want_grads)]
+            worst = max([worst] + errs)
+            if max(errs) > DWPROJ_TOL or not all(
+                    torch.equal(a, b) for a, b in zip(got_grads, again)):
+                raise AssertionError(f"dwproj disagrees or is not deterministic at B={B} C={C} "
+                                     f"W={W} stride={stride}: {errs}")
+
+            def fwd_bwd(fn):
+                # fresh leaves: autograd syncs the caller's stream with the stream of a
+                # leaf's first backward, which must not be the legacy stream under capture
+                fresh = [t.clone().requires_grad_(True) for t in args]
+                return lambda: torch.autograd.grad(fn(*fresh, stride), fresh, g)
+            with torch.no_grad():
+                t = dict(kernel_fwd_ms=graph_ms(lambda: D.dwproj(*args, stride)),
+                         plain_fwd_ms=graph_ms(lambda: D.dwproj_plain(*args, stride)),
+                         library_fwd_ms=graph_ms(lambda: lib(*args, stride)))
+            t.update(kernel_fwd_bwd_ms=graph_ms(fwd_bwd(D.dwproj)),
+                     plain_fwd_bwd_ms=graph_ms(fwd_bwd(D.dwproj_plain)),
+                     library_fwd_bwd_ms=graph_ms(fwd_bwd(lib)),
+                     bound_fwd_ms=4 * B * C * (W + Wo) / PEAK_BYTES * 1e3,
+                     bound_bwd_ms=4 * B * C * (2 * W + Wo) / PEAK_BYTES * 1e3)
+            rows.append(dict(B=B, C=C, W=W, stride=stride, channels_last=cl, count=n,
+                             max_rel_err=max(errs), **t))
+            totals.update({k: n * v for k, v in t.items()})
+            log(f"[dwproj] B={B} C={C} W={W} stride={stride} channels_last={cl} x{n}: "
+                f"max|d|/max|ref| {max(errs):.2e}, " + json.dumps(t))
+        res[B] = dict(rows=rows, totals=dict(totals))
+        log(f"[dwproj] B={B}, the {sum(calls.values())} projections of the SNV CvT summed: "
+            + json.dumps(dict(totals)))
+    res["max_rel_err"] = worst
+    return res
+
+
 def _flagship(mode, dev):
     """(aff, neg, likelihood, engine keywords) of the flagship ONT weights."""
     from clairs_to_tpu_torch.models.checkpoint import load_checkpoint_auto
@@ -422,7 +563,7 @@ def _engine_batch(n=8192):
 
 def phase_engine(dev):
     from clairs_to_tpu_torch.infer.engine import InferenceEngine
-    from clairs_to_tpu_torch.ops import gru
+    from clairs_to_tpu_torch.ops import dwproj, gru
 
     x_aff, x_neg, cov = _engine_batch()
     out = {}
@@ -430,9 +571,13 @@ def phase_engine(dev):
         aff, neg, lik, kw = _flagship(mode, dev)
         kern = InferenceEngine(aff, neg, lik, device=dev, **kw)
         plain = InferenceEngine(aff, neg, lik, use_kernel=False, device=dev, **kw)
-        before = gru.gru_direction.launches
+        before = gru.gru_direction.launches, dwproj.dwproj.launches
         a = kern.run_batch(x_aff, x_neg, cov, cov)
-        launched = gru.gru_direction.launches - before
+        launched = gru.gru_direction.launches - before[0]
+        dw_launched = dwproj.dwproj.launches - before[1]
+        if dw_launched != 2 * sum(kw["cvt_config"].depths):
+            raise AssertionError(f"{mode}: {dw_launched} dwproj launches in a CvT forward, "
+                                 f"expected one a projection")
         p = plain.run_batch(x_aff, x_neg, cov, cov)
         err = max(np.abs(a.p_aff - p.p_aff).max(), np.abs(a.p_neg - p.p_neg).max())
         forward_ms = {name: 1e3 * _wall(lambda e=e: e.run_batch(x_aff, x_neg, cov, cov), 3)
@@ -451,7 +596,8 @@ def phase_engine(dev):
             raise AssertionError(f"{mode}: expected 4 GRU launches per NEG forward, got {launched}")
         if err > ENGINE_TOL or not np.isfinite(a.posterior).all():
             raise AssertionError(f"{mode}: engine with kernel disagrees ({err:.3e})")
-        out[mode] = dict(max_abs_err=float(err), **{f"{k}_ms": v for k, v in forward_ms.items()})
+        out[mode] = dict(max_abs_err=float(err), dwproj_launches=dw_launched,
+                         **{f"{k}_ms": v for k, v in forward_ms.items()})
     return out
 
 
@@ -509,23 +655,56 @@ def _run_cli(ds, out_dir, device, platform="ont", extra=()):
     return wall, n_cand, _summary(text)
 
 
-def _counted_run(tag, card, ds, out_dir, platform="ont", extra=()):
-    """A run on the card with the kernel's launches counted from 0."""
-    from clairs_to_tpu_torch.ops import gru
+def _zero_launches():
+    """Count the GRU forward kernel's and the depthwise projection forward
+    kernel's launches from 0."""
+    from clairs_to_tpu_torch.ops import dwproj, gru
 
-    gru.gru_direction.launches = 0
+    gru.gru_direction.launches = dwproj.dwproj.launches = 0
+
+
+def _launches():
+    """(GRU forward, depthwise projection forward) launches counted so far."""
+    from clairs_to_tpu_torch.ops import dwproj, gru
+
+    return gru.gru_direction.launches, dwproj.dwproj.launches
+
+
+def _projections(mode):
+    """The depthwise projections of a CvT forward: two a transformer block."""
+    from clairs_to_tpu_torch.models import cvt
+
+    return 2 * sum((cvt.SNV_CVT_CONFIG if mode == "snv" else cvt.INDEL_CVT_CONFIG).depths)
+
+
+def _check_dwproj(tag, launches, dw_launches):
+    """Every engine batch runs one CvT forward (a dwproj launch a projection:
+    26 in the SNV net, 12 in the indel net) beside one BiGRU forward (4 GRU
+    launches), so a path that calls through the kernels launches dwproj
+    between 3 and 6.5 times as often as the GRU forward kernel."""
+    lo, hi = (_projections(m) / 4 for m in ("indel", "snv"))
+    if not (launches > 0 and lo * launches <= dw_launches <= hi * launches):
+        raise AssertionError(f"{tag}: {dw_launches} dwproj launches against {launches} GRU "
+                             f"launches, not between {lo} and {hi} times as many")
+
+
+def _counted_run(tag, card, ds, out_dir, platform="ont", extra=()):
+    """A run on the card with the kernels' launches counted from 0."""
+    _zero_launches()
     wall, n_cand, summary = _run_cli(ds, out_dir, "cuda", platform, extra)
-    launches = gru.gru_direction.launches
+    launches, dw_launches = _launches()
     log(f"[{tag}] {card}: {n_cand} candidates in {wall:.2f} s wall = {n_cand / wall:.1f} "
-        f"cand/s; GRU launches {launches}")
+        f"cand/s; GRU launches {launches}, dwproj launches {dw_launches}")
     log(f"[{tag}] stages {json.dumps(summary['stages'])}")
     log(f"[{tag}] counters {json.dumps(summary['counters'])}")
-    if launches <= 0:
-        raise AssertionError(f"{tag}: the run never launched the GRU kernel")
-    if summary["counters"].get("gru_launches") != launches:
-        raise AssertionError(f"{tag}: the run's gru_launches counter is not the wrapper's count")
+    _check_dwproj(tag, launches, dw_launches)
+    counted = summary["counters"].get("gru_launches"), summary["counters"].get("dwproj_launches")
+    if counted != (launches, dw_launches):
+        raise AssertionError(f"{tag}: the run's gru_launches and dwproj_launches counters "
+                             f"{counted} are not the wrappers' counts")
     return dict(candidates=n_cand, wall_s=wall, cand_per_s=n_cand / wall, launches=launches,
-                stages=summary["stages"], counters=summary["counters"])
+                dwproj_launches=dw_launches, stages=summary["stages"],
+                counters=summary["counters"])
 
 
 def _same_calls(tag, gpu_dir, cpu_dir, names=("snv.vcf", "indel.vcf"), who=("cuda", "cpu")):
@@ -714,7 +893,6 @@ def phase_serve(card, ds, region, batch):
     three requests with phase 5's flags over loopback HTTP.  ``batch`` is
     phase 5's result: its runs are what the answers must equal."""
     from clairs_to_tpu_torch import serve
-    from clairs_to_tpu_torch.ops import gru
 
     t0 = time.time()
     srv = serve.make_server("127.0.0.1", 0, preload="ont", device="cuda")
@@ -727,33 +905,38 @@ def phase_serve(card, ds, region, batch):
             ("region again", extra + ("-r", region), "default_cuda_region", batch["region"]),
             ("genome", extra, "default_cuda", batch)]
     answers = []
-    gru.gru_direction.launches = 0
+    _zero_launches()
     try:
         for k, (what, flags, batch_dir, batch_run) in enumerate(plan):
             out_dir = os.path.join(WORK, f"serve_{k}")
-            before = gru.gru_direction.launches
+            before = _launches()
             status, r = _http(base + "/v1/call", {"argv": _cli_args(ds, out_dir, "cuda",
                                                                       extra=flags)})
-            launched = gru.gru_direction.launches - before
+            launched, dw_launched = (n - b for n, b in zip(_launches(), before))
             if status != 200 or r.get("returncode") != 0:
                 raise AssertionError(f"serve: request {k} ({what}) answered {status}: {r}")
             stages, counters = r["metrics"]["stages"], r["metrics"]["counters"]
             log(f"[serve] {card}: request {k} ({what}): {r['seconds']:.2f} s, engines_cached "
-                f"{r['engines_cached']}, GRU launches {launched}; the batch run took "
+                f"{r['engines_cached']}, GRU launches {launched}, dwproj launches "
+                f"{dw_launched}; the batch run took "
                 f"{batch_run['wall_s']:.2f} s")
             log(f"[serve] request {k} stages {json.dumps(stages)}")
             log(f"[serve] batch run stages {json.dumps(batch_run['stages'])}")
             if not r["engines_cached"]:
                 raise AssertionError(f"serve: request {k} did not find the preloaded engines")
-            if launched <= 0 or counters.get("gru_launches") != launched:
-                raise AssertionError(f"serve: request {k} launched the kernel {launched} times, "
-                                     f"its counter says {counters.get('gru_launches')}")
+            _check_dwproj(f"serve: request {k}", launched, dw_launched)
+            counted = counters.get("gru_launches"), counters.get("dwproj_launches")
+            if counted != (launched, dw_launched):
+                raise AssertionError(f"serve: request {k} launched the kernels "
+                                     f"{(launched, dw_launched)} times, its counters say "
+                                     f"{counted}")
             if "load_engines" in stages:
                 raise AssertionError(f"serve: request {k} loaded engines of its own")
             _same_calls(f"serve {what}", out_dir, os.path.join(WORK, batch_dir),
                         who=("the server", "the batch run"))
             answers.append(dict(what=what, seconds=r["seconds"], launches=launched,
-                                stages=stages, batch_wall_s=batch_run["wall_s"]))
+                                dwproj_launches=dw_launched, stages=stages,
+                                batch_wall_s=batch_run["wall_s"]))
         status, health = _http(base + "/health")
         if status != 200 or health["status"] != "ok" or len(health["engines"]) != 1:
             raise AssertionError(f"serve: /health says {health}")
@@ -764,14 +947,15 @@ def phase_serve(card, ds, region, batch):
         srv.shutdown()
         srv.server_close()
         thread.join(timeout=60)
-    launches = gru.gru_direction.launches
+    launches, dw_launches = _launches()
     warm, cold = answers[1], batch["region"]
     load = cold["stages"].get("load_engines", 0.0) + cold["stages"].get("engine_warmup", 0.0)
     log(f"[serve] WARM_SAVING {card}: region as a batch run {cold['wall_s']:.2f} s "
         f"(load_engines + engine_warmup {load:.2f} s), as a warm request "
         f"{warm['seconds']:.2f} s; preload took {preload_s:.2f} s; /health lists "
         f"{health['engines']}")
-    return dict(launches=launches, preload_s=preload_s, requests=answers)
+    return dict(launches=launches, dwproj_launches=dw_launches, preload_s=preload_s,
+                requests=answers)
 
 
 def _verdict_line(text):
@@ -784,14 +968,14 @@ def _verdict_line(text):
 def phase_two_process(card, ds, pon, n_candidates):
     """Phase 8: ranks 0 and 1 of one coordinator, both on cuda:0, against a
     single-process run with the same ``--chunk_num 4`` (which must find the
-    ``n_candidates`` of the one-chunk run).  The kernel and the
-    two C++ libraries an ONT run loads are deleted first (this process keeps
-    its loaded copies),
-    so both ranks build each of them at the same time."""
+    ``n_candidates`` of the one-chunk run).  The two forward kernels (the
+    GRU's and the depthwise projection's) and the two C++ libraries an ONT
+    run loads are deleted first (this process keeps its loaded copies), so
+    both ranks build each of them at the same time."""
     import socket
 
     from clairs_to_tpu_torch.bamio import native
-    from clairs_to_tpu_torch.ops import gru
+    from clairs_to_tpu_torch.ops import dwproj, gru
     from clairs_to_tpu_torch.postcall import verdict_native
 
     extra = ("--panel_of_normals", pon, "--chunk_num", "4")
@@ -803,7 +987,8 @@ def phase_two_process(card, ds, pon, n_candidates):
         raise AssertionError(f"two-process: four chunks gave {n_cand} candidates, one chunk "
                              f"{n_candidates}")
 
-    built = [gru._SO, native._SO, verdict_native._SO]   # what an ONT run loads
+    # what an ONT run loads
+    built = [gru.LIBS["gru"].so, dwproj.LIB.so, native._SO, verdict_native._SO]
     for so in built:
         os.remove(so)
     with socket.socket() as s:
@@ -839,25 +1024,29 @@ def phase_two_process(card, ds, pon, n_candidates):
     for rank, text in enumerate(texts):
         summary = _summary(text)
         launches = summary["counters"].get("gru_launches", 0)
+        dw_launches = summary["counters"].get("dwproj_launches", 0)
         log(f"[two-process] rank {rank}: {summary['counters']['candidates']} candidates, "
-            f"GRU launches {launches}, stages {json.dumps(summary['stages'])}")
+            f"GRU launches {launches}, dwproj launches {dw_launches}, stages "
+            f"{json.dumps(summary['stages'])}")
         if f"Host {rank}/2: owns 2/4 chunks" not in text or launches <= 0:
             raise AssertionError(f"two-process: rank {rank} owned no chunks or never launched "
                                  f"the kernel:\n{text[-2000:]}")
+        _check_dwproj(f"two-process: rank {rank}", launches, dw_launches)
         # the Python pileup that a rank falls back to when its C++ decoder
         # did not build or load is some fifty times slower
         decode, decode_one = (x["stages"]["decode_tensor_build(worker)"] for x in (summary, one))
         if decode > 30 + 10 * decode_one:
             raise AssertionError(f"two-process: rank {rank} decoded for {decode} s against "
                                  f"{decode_one} s in one process: no C++ decoder?")
-        ranks.append(dict(launches=launches, stages=summary["stages"],
+        ranks.append(dict(launches=launches, dwproj_launches=dw_launches,
+                          stages=summary["stages"],
                           candidates=summary["counters"]["candidates"]))
     if "SNV output" not in texts[0] or "SNV output" in texts[1] \
             or "host 0 merges the output" not in texts[1]:
         raise AssertionError("two-process: rank 1 must stop at the barrier and rank 0 write "
                              "the output")
     log(f"[two-process] {card}: two processes, 2 chunks each: {wall2:.2f} s wall, the build "
-        f"of the kernel and two C++ libraries by both ranks included")
+        f"of two kernels and two C++ libraries by both ranks included")
     _same_calls("two-process", two_dir, one_dir, who=("two processes", "one process"))
     v_two = _verdict_line(texts[0])
     v_one = _verdict_line(open(os.path.join(one_dir, "run_clairs_to_tpu_torch.log")).read())
@@ -871,8 +1060,9 @@ def phase_two_process(card, ds, pon, n_candidates):
     if not (two and single) or abs(float(two[1]) - float(single[1])) > 0.02 \
             or two.groups()[1:] != single.groups()[1:]:
         raise AssertionError(f"two-process: Verdict differs: {v_two!r} vs {v_one!r}")
-    return dict(launches=sum(r["launches"] for r in ranks), wall_s=wall2, ranks=ranks,
-                one_process_wall_s=wall, verdict_same_line=v_two == v_one)
+    return dict(launches=sum(r["launches"] for r in ranks),
+                dwproj_launches=sum(r["dwproj_launches"] for r in ranks), wall_s=wall2,
+                ranks=ranks, one_process_wall_s=wall, verdict_same_line=v_two == v_one)
 
 
 def phase_replicas(dev):
@@ -880,26 +1070,28 @@ def phase_replicas(dev):
     weights, 8192 rows: each replica takes 4096 rows on its own copy of the
     networks, with its own pinned buffers and event."""
     from clairs_to_tpu_torch.infer.engine import InferenceEngine
-    from clairs_to_tpu_torch.ops import gru
 
     x_aff, x_neg, cov = _engine_batch()
-    out, total = {}, 0
+    out, total, dw_total = {}, 0, 0
     for mode in ("snv", "indel"):
         aff, neg, lik, kw = _flagship(mode, dev)
         one = InferenceEngine(aff, neg, lik, device=dev, **kw)
         two = InferenceEngine(aff, neg, lik, devices=["cuda:0", "cuda:0"], **kw)
         want = one.run_batch(x_aff, x_neg, cov, cov)
-        gru.gru_direction.launches = 0
+        _zero_launches()
         got = two.run_batch(x_aff, x_neg, cov, cov)
-        launched = gru.gru_direction.launches
+        launched, dw_launched = _launches()
         err = max(np.abs(got.p_aff - want.p_aff).max(), np.abs(got.p_neg - want.p_neg).max())
         ms = {name: 1e3 * _wall(lambda e=e: e.run_batch(x_aff, x_neg, cov, cov), 3)
               for name, e in (("one_device", one), ("two_replicas", two))}
         log(f"[replicas] {mode}: 8192 rows as 2 x 4096 on cuda:0, GRU launches {launched}, "
+            f"dwproj launches {dw_launched}, "
             f"max |p diff| {err:.3e}, run_batch ms one device {ms['one_device']:.2f} "
             f"two replicas {ms['two_replicas']:.2f}")
-        if launched != 8:
-            raise AssertionError(f"replicas {mode}: expected 8 GRU launches, got {launched}")
+        if (launched, dw_launched) != (8, 2 * _projections(mode)):
+            raise AssertionError(f"replicas {mode}: expected 8 GRU launches and "
+                                 f"{2 * _projections(mode)} dwproj launches, got {launched} "
+                                 f"and {dw_launched}")
         if err > REPLICA_TOL or not np.isfinite(got.posterior).all() \
                 or got.posterior.shape != want.posterior.shape:
             raise AssertionError(f"replicas {mode}: two replicas disagree with one device "
@@ -907,8 +1099,9 @@ def phase_replicas(dev):
         if not np.array_equal(got.forward_acgt, want.forward_acgt):
             raise AssertionError(f"replicas {mode}: strand counts differ")
         total += launched
+        dw_total += dw_launched
         out[mode] = dict(max_abs_err=float(err), **{f"{k}_ms": v for k, v in ms.items()})
-    out["launches"] = total
+    out["launches"], out["dwproj_launches"] = total, dw_total
     return out
 
 
@@ -977,13 +1170,14 @@ def _device_busy(tr, batch, gen, wall_ms, use_kernel=True, steps=5):
 
 def phase_train(card, ds):
     """Phase 10: the training path at the flagship widths; ``ds`` is phase
-    4's genome.  Returns its numbers, the GRU launches of the training path
-    (``train``'s calibration forwards and (d)'s, counted from 0 before (c))
-    and those of the calling run (e), counted from 0 before it."""
+    4's genome.  Returns its numbers, the GRU and depthwise projection
+    launches of the training path (``train``'s steps and calibration
+    forwards and (d)'s, counted from 0 before (c)) and those of the calling
+    run (e), counted from 0 before it."""
     from clairs_to_tpu_torch.__main__ import SUBMODULES
     from clairs_to_tpu_torch.bench.grad_check import compare, step_grads, to_float64, train_batch
     from clairs_to_tpu_torch.models.checkpoint import load_checkpoint
-    from clairs_to_tpu_torch.ops import gru
+    from clairs_to_tpu_torch.ops import dwproj, gru
     from clairs_to_tpu_torch.train import CAPTURE_WARMUP_STEPS, DualTrainer, TrainConfig
 
     res = {}
@@ -1001,11 +1195,14 @@ def phase_train(card, ds):
             tr.models[net].load_state_dict(card_tr.models[net].state_dict())
     to_float64(f64_tr)
     gru.gru_direction.launches = gru.gru_direction_backward.launches = 0
+    dwproj.dwproj.launches = dwproj.dwproj_backward.launches = 0
     t0 = time.time()
     got = step_grads(card_tr, batch)
     t1 = time.time()
     res["step_launches"] = dict(gru_direction=gru.gru_direction.launches,
                                 gru_direction_backward=gru.gru_direction_backward.launches)
+    res["step_dwproj_launches"] = dict(dwproj=dwproj.dwproj.launches,
+                                       dwproj_backward=dwproj.dwproj_backward.launches)
     want = step_grads(cpu_tr, [t.cpu() for t in batch])
     cpu_s = time.time() - t1
     gap = compare(got, want)
@@ -1021,6 +1218,10 @@ def phase_train(card, ds):
     if res["step_launches"] != dict(gru_direction=4, gru_direction_backward=4):
         raise AssertionError(f"train: a step launched the GRU kernels {res['step_launches']} "
                              f"times, not 4 and 4")
+    projections = 2 * sum(card_tr.cvt_config.depths)
+    if res["step_dwproj_launches"] != dict(dwproj=projections, dwproj_backward=projections):
+        raise AssertionError(f"train: a step launched the dwproj kernels "
+                             f"{res['step_dwproj_launches']} times, not {projections} each")
     res.update(gap, loss=got[0], grad_norm=got[1])
     plain = step_grads(plain_tr, batch, use_kernel=False)
     kp = compare(got, plain)
@@ -1066,6 +1267,7 @@ def phase_train(card, ds):
     model_dir = os.path.join(WORK, "trained")
     res["cli_wall_s"] = {}
     gru.gru_direction.launches = gru.gru_direction_backward.launches = 0
+    dwproj.dwproj.launches = dwproj.dwproj_backward.launches = 0
     for mode, sub in (("snv", ""), ("indel", "indel")):
         t0 = time.time()
         rc = SUBMODULES["train"](["--output_dir", os.path.join(model_dir, sub), "--mode", mode,
@@ -1083,6 +1285,8 @@ def phase_train(card, ds):
     kern = tr.predict_probs(x, rescale_cov=cov, x_neg=x_neg)
     res["launches"] = gru.gru_direction.launches
     res["bwd_launches"] = gru.gru_direction_backward.launches
+    res["dwproj_launches"] = dwproj.dwproj.launches
+    res["dwproj_bwd_launches"] = dwproj.dwproj_backward.launches
     plain = tr.predict_probs(x, rescale_cov=cov, x_neg=x_neg, use_kernel=False)
     err = max(float(np.abs(a - b).max()) for a, b in zip(kern, plain))
     log(f"[train] predict_probs on {len(x)} rows: kernel vs plain GRU max |p diff| {err:.3e}")
@@ -1094,27 +1298,39 @@ def phase_train(card, ds):
     # once, after CAPTURE_WARMUP_STEPS eager steps, and its replays launch
     # nothing from the host; 2 modes; 4 forward launches a NEG forward, one
     # forward per 512 rows: train's calibration forwards 3000 rows a mode,
-    # (d) 800
-    steps = 2 * (CAPTURE_WARMUP_STEPS + 1)
-    batches = 2 * -(-3000 // 512) + -(-len(x) // 512)
-    want = (4 * (steps + batches), 4 * steps)
+    # (d) 800.  The CvT's forward and backward launch dwproj once a
+    # projection where the BiGRU launches each GRU kernel 4 times; (d)
+    # predicts with the SNV pair
+    steps = CAPTURE_WARMUP_STEPS + 1
+    calib = -(-3000 // 512)
+    predict = -(-len(x) // 512)
+    want = (4 * (2 * steps + 2 * calib + predict), 4 * 2 * steps)
     log(f"[train] launches_by_path[\"train\"] = {res['launches']} forward, "
         f"{res['bwd_launches']} backward (expected {want[0]}, {want[1]})")
     if (res["launches"], res["bwd_launches"]) != want:
         raise AssertionError(f"train: {res['launches']} and {res['bwd_launches']} GRU "
                              f"launches, expected {want}")
+    both = _projections("snv") + _projections("indel")
+    want = ((steps + calib) * both + predict * _projections("snv"), steps * both)
+    got = (res["dwproj_launches"], res["dwproj_bwd_launches"])
+    log(f"[train] dwproj launches of the train path: {got[0]} forward, {got[1]} backward "
+        f"(expected {want[0]}, {want[1]})")
+    if got != want:
+        raise AssertionError(f"train: {got[0]} and {got[1]} dwproj launches, expected {want}")
     # (e) call with the trained networks
     out_dir = os.path.join(WORK, "trained_run")
-    gru.gru_direction.launches = 0
+    _zero_launches()
     wall, n_cand, summary = _run_cli(ds, out_dir, "cuda", extra=("--model_dir", model_dir,
                                                                  *OPT_OUT))
-    res["run_launches"] = gru.gru_direction.launches
+    res["run_launches"], res["run_dwproj_launches"] = _launches()
+    _check_dwproj("train: run --model_dir", res["run_launches"], res["run_dwproj_launches"])
     for name in ("snv.vcf", "indel.vcf"):
         if not os.path.exists(os.path.join(out_dir, name)):
             raise AssertionError(f"train: run --model_dir wrote no {name}")
     rows = {n: len(_calls(os.path.join(out_dir, n), None)) for n in ("snv.vcf", "indel.vcf")}
     log(f"[train] run --model_dir with the trained networks: {n_cand} candidates in "
-        f"{wall:.2f} s, rows {json.dumps(rows)}, GRU launches {res['run_launches']}")
+        f"{wall:.2f} s, rows {json.dumps(rows)}, GRU launches {res['run_launches']}, dwproj "
+        f"launches {res['run_dwproj_launches']}")
     res.update(run_wall_s=wall, run_rows=rows)
     return res
 
@@ -1203,7 +1419,8 @@ def phase_run_paths(card, contig_len=RUN_PATHS_CONTIG, chunk_size=RUN_PATHS_CHUN
         raise AssertionError("run-paths: the --alt_fn dumps of the card and the CPU differ")
     log(f"[run-paths] --alt_fn dumps identical on cuda and cpu: {dump.count(chr(10))} lines; "
         f"the CPU run took {cpu[0]:.2f} s")
-    return dict(launches=res["launches"] + again["launches"], first=res,
+    return dict(launches=res["launches"] + again["launches"],
+                dwproj_launches=res["dwproj_launches"] + again["dwproj_launches"], first=res,
                 resumed=dict(chunks=resumed, wall_s=again["wall_s"],
                              candidates=again["candidates"], launches=again["launches"],
                              stages=again["stages"]),
@@ -1276,6 +1493,7 @@ def main(argv=None):
     prev_bwd = load_prev_bwd(prev_bwd_build) if prev_bwd_build else None
     max_err, timings = phase_kernel(gru, dev, prev)
     bwd_err, bwd_timings = phase_backward(gru, dev, prev_bwd)
+    dw = phase_dwproj(dev)
     engine = phase_engine(dev)
     e2e = phase_end_to_end(card, GENOME_LEN, ILMN_GENOME_LEN)
     e2e["replicas"] = phase_replicas(dev)
@@ -1316,6 +1534,29 @@ def main(argv=None):
     ))
     if "prev_ms" in tb:
         kernels[1]["prev_ms"] = tb["prev_ms"]
+    step, batch = dw[800]["totals"], dw[8192]["totals"]
+    kernels.append(dict(
+        name="dwproj", route="cuda", source="clairs_to_tpu_torch/csrc/dwproj.cu",
+        replaces="none (the JAX package leaves the CvT's depthwise conv to XLA)",
+        launches=e2e["default_ont"]["dwproj_launches"],
+        launches_by_path=dict(
+            {k: e2e[k]["dwproj_launches"] for k in (
+                "opt_out", "default_ont", "ilmn", "serve", "two_process", "replicas", "train",
+                "run_paths")},
+            engine_snv=engine["snv"]["dwproj_launches"],
+            engine_indel=engine["indel"]["dwproj_launches"],
+            train_backward=e2e["train"]["dwproj_bwd_launches"],
+            train_step=e2e["train"]["step_dwproj_launches"]["dwproj"],
+            train_step_backward=e2e["train"]["step_dwproj_launches"]["dwproj_backward"],
+            train_run=e2e["train"]["run_dwproj_launches"]),
+        max_rel_err=dw["max_rel_err"],
+        shape="the SNV CvT's 26 projections, B=800 (a step) and B=8192 (an engine batch)",
+        step_ms={k: step[k] for k in ("kernel_fwd_bwd_ms", "plain_fwd_bwd_ms",
+                                      "library_fwd_bwd_ms")},
+        step_bound_ms=step["bound_fwd_ms"] + step["bound_bwd_ms"],
+        batch_fwd_ms={k: batch[k] for k in ("kernel_fwd_ms", "plain_fwd_ms", "library_fwd_ms")},
+        batch_bound_fwd_ms=batch["bound_fwd_ms"],
+    ))
     for k in kernels:
         if min(k["launches_by_path"].values()) <= 0:
             raise AssertionError(f"a path never launched {k['name']}: {k['launches_by_path']}")

@@ -770,6 +770,7 @@ def _pipeline_body(args, metrics, t0, tee, engines=None):
     from clairs_to_tpu_torch.genome.chunks import plan_chunks
     from clairs_to_tpu_torch.genome.fasta import FastaFile
     from clairs_to_tpu_torch.infer.pipeline import CallingPipeline, PipelineOptions, chunk_id
+    from clairs_to_tpu_torch.ops.dwproj import dwproj
     from clairs_to_tpu_torch.ops.gru import gru_direction
     from clairs_to_tpu_torch.parallel.scheduler import (
         all_hosts_barrier,
@@ -842,7 +843,7 @@ def _pipeline_body(args, metrics, t0, tee, engines=None):
         chunks = owned_chunks(all_chunks, process_index, process_count)
         print(f"[INFO] Host {process_index}/{process_count}: owns "
               f"{len(chunks)}/{len(all_chunks)} chunks")
-    launches_before = gru_direction.launches
+    launches_before = gru_direction.launches, dwproj.launches
     call_indels = not _str2bool(args.disable_indel_calling)
 
     genotyping_sites = None
@@ -998,8 +999,10 @@ def _pipeline_body(args, metrics, t0, tee, engines=None):
                 _finalize_chunk(*inflight.popleft())
         while inflight:
             _finalize_chunk(*inflight.popleft())
-    # launches of the GRU kernel by this run: above 0 whenever a batch ran on a GPU
-    metrics.count("gru_launches", gru_direction.launches - launches_before)
+    # launches of the GRU and depthwise projection forward kernels by this
+    # run: above 0 whenever a batch ran on a GPU
+    metrics.count("gru_launches", gru_direction.launches - launches_before[0])
+    metrics.count("dwproj_launches", dwproj.launches - launches_before[1])
 
     # --- multi-process join: every rank finished its owned chunks ---------
     if process_count > 1:

@@ -9,8 +9,8 @@ parameter pytree maps onto this module's ``state_dict`` key for key
 * each stage: Conv2d(k=3, pad=1, stride=2) embed -> channelwise LayerNorm
   (eps added to the *std*, biased variance — not ``nn.LayerNorm``) ->
   transformer blocks with depthwise-conv QKV projections (q stride 1, kv
-  stride (1, 2), BatchNorm on its running statistics) and 1x1-conv
-  feedforward (mult 4, exact GELU);
+  stride (1, 2), BatchNorm on its running statistics; the two as one
+  ``ops/dwproj.py::dwproj``) and 1x1-conv feedforward (mult 4, exact GELU);
 * trunk flatten (NCHW row-major) -> fc1(128) -> per-allele fc2(128)+fc3(2),
   SELU after every fc including fc3;
 * training-time dropout at the JAX forward's three fc sites only: the
@@ -31,6 +31,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from clairs_to_tpu_torch.ops.dwproj import dwproj
 
 SNV_ALLELES = ("a", "c", "g", "t")
 INDEL_ALLELES = ("a", "c", "g", "t", "i", "d")
@@ -100,8 +102,9 @@ class Linear(nn.Module):
 
 class BatchNorm(nn.Module):
     """BatchNorm on its running statistics, in the JAX package's scale/shift
-    form, in eval and train mode alike.  The statistics are buffers, so an
-    optimizer sees them only when given them (train.py does)."""
+    form, in eval and train mode alike: ``x * scale + shift``, which
+    ``DepthwiseProj`` applies inside ``dwproj``.  The statistics are buffers,
+    so an optimizer sees them only when given them (train.py does)."""
 
     def __init__(self, dim, eps=1e-5):
         super().__init__()
@@ -111,15 +114,16 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
 
-    def forward(self, x):
+    def scale_shift(self):
+        """(scale, shift), each (C,)."""
         inv = torch.rsqrt(self.running_var + self.eps)
-        scale = (self.weight * inv).reshape(1, -1, 1, 1)
-        shift = (self.bias - self.running_mean * self.weight * inv).reshape(1, -1, 1, 1)
-        return x * scale + shift
+        return self.weight * inv, self.bias - self.running_mean * self.weight * inv
 
 
 class DepthwiseProj(nn.Module):
-    """Depthwise conv (stride (1, s), padding k//2) -> BN -> 1x1 conv."""
+    """Depthwise conv (stride (1, s), padding 1) -> BN -> 1x1 conv.  The
+    first two are one ``ops/dwproj.py::dwproj`` (a kernel pair on CUDA):
+    with H=1 only the 3x3 kernel's middle row meets data."""
 
     def __init__(self, dim_in, dim_out, k, stride):
         super().__init__()
@@ -129,10 +133,8 @@ class DepthwiseProj(nn.Module):
         self.pw_weight = _param(dim_out, dim_in, 1, 1)
 
     def forward(self, x):
-        k = self.dw_weight.shape[-1]
-        out = F.conv2d(x, self.dw_weight, stride=(1, self.stride),
-                       padding=(k // 2, k // 2), groups=x.shape[1])
-        return F.conv2d(self.bn(out), self.pw_weight)
+        out = dwproj(x, self.dw_weight, *self.bn.scale_shift(), self.stride)
+        return F.conv2d(out, self.pw_weight)
 
 
 class Attention(nn.Module):

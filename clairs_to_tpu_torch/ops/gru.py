@@ -12,74 +12,32 @@ JAX package trains through the same function with XLA's gradient of its
 it never falls back.
 
 The kernels are compiled by ``nvcc`` for sm_90a into ``build/kernels/`` at
-the repository root on first use and loaded with ctypes.  The forward reads
+the repository root on first use and loaded with ctypes (``ops/_native.py``).
+The forward reads
 W_hh^T in the chunked layout of ``pack_w_hh``, which the wrapper builds for
 each launch; the backward reads W_hh^T as it is, and runs on a grid of
 thread-block clusters that ``bwd_geometry`` sizes.
 """
 
 import ctypes
-import os
-import shutil
-import subprocess
 import threading
 
 import torch
 from torch.autograd.function import once_differentiable
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "gru.cu")
-SOURCE_BWD = os.path.join(_PKG, "csrc", "gru_bwd.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-_SO = os.path.join(BUILD_DIR, "libgru.so")
-_SO_BWD = os.path.join(BUILD_DIR, "libgru_bwd.so")
+from clairs_to_tpu_torch.ops import _native
+
 MAX_HIDDEN = 256   # csrc/gru.cu and csrc/gru_bwd.cu: the largest H they take
 KC, GROUP = 16, 64  # csrc/gru.cu: W rows per chunk, hidden units per column group
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# library -> {entry point: its argument types}; the first is the launch
-_ENTRY = {"gru": {"gru_direction_f32": [_P] * 4 + [_I] * 4 + [_P]},
-          "gru_bwd": {"gru_direction_backward_f32": [_P] * 7 + [_I] * 6 + [_P],
-                      "gru_direction_backward_max_clusters": [_I] * 3 + [ctypes.POINTER(_I)]}}
-_libs = {}   # library -> {entry point: its loaded function}
-_lock = threading.Lock()
-
-
-def _paths(name):
-    return (SOURCE, _SO) if name == "gru" else (SOURCE_BWD, _SO_BWD)
-
-
-def _nvcc():
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the GRU kernels are built from csrc/gru.cu and "
-                       "csrc/gru_bwd.cu with the CUDA toolkit (set CUDA_HOME)")
-
-
-def stale(src, so):
-    """Whether the library ``so`` is missing or older than its source ``src``."""
-    return not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src)
-
-
-def start_compile(argv, so):
-    """Start the compiler ``argv`` writing to a temporary name beside ``so``
-    (two processes may build at once); ``finish_compile`` renames it."""
-    os.makedirs(os.path.dirname(so), exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    return tmp, subprocess.Popen([*argv, "-o", tmp], stdout=subprocess.PIPE,
-                                 stderr=subprocess.PIPE, text=True)
-
-
-def finish_compile(job, so):
-    """Wait for a ``start_compile`` job and, if it succeeded, move its library
-    to ``so``.  Returns (returncode, stdout, stderr)."""
-    tmp, proc = job
-    out, err = proc.communicate()
-    if proc.returncode == 0:
-        os.replace(tmp, so)
-    return proc.returncode, out, err
+# the forward and the backward; each library's first entry point is its launch
+LIBS = {"gru": _native.Library("gru.cu", "libgru.so",
+                               {"gru_direction_f32": [_P] * 4 + [_I] * 4 + [_P]}),
+        "gru_bwd": _native.Library(
+            "gru_bwd.cu", "libgru_bwd.so",
+            {"gru_direction_backward_f32": [_P] * 7 + [_I] * 6 + [_P],
+             "gru_direction_backward_max_clusters": [_I] * 3 + [ctypes.POINTER(_I)]})}
 
 
 def build(names=("gru", "gru_bwd"), verbose=False):
@@ -89,44 +47,13 @@ def build(names=("gru", "gru_bwd"), verbose=False):
 
     Returns the compiler's diagnostics (``-Xptxas -v`` when ``verbose``),
     or "" when every library was already current.  Raises if one fails."""
-    with _lock:
-        jobs = {}
-        for name in names:
-            src, so = _paths(name)
-            if stale(src, so):
-                cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                       "-O3", "-shared", "-Xcompiler", "-fPIC", src]
-                if verbose:
-                    cmd[1:1] = ["-Xptxas", "-v"]
-                jobs[name] = start_compile(cmd, so)
-        log, failed = "", []
-        for name, job in jobs.items():
-            src, so = _paths(name)
-            rc, out, err = finish_compile(job, so)
-            if rc != 0:
-                failed.append(f"nvcc failed on {os.path.basename(src)} ({rc}):\n{err}")
-                continue
-            log += f"{os.path.basename(src)}:\n{out}{err}"
-        if failed:
-            raise RuntimeError("\n".join(failed))
-        for name in names:
-            if name not in _libs:
-                lib = ctypes.CDLL(_paths(name)[1])
-                fns = {}
-                for entry, argtypes in _ENTRY[name].items():
-                    fn = getattr(lib, entry)
-                    fn.restype, fn.argtypes = ctypes.c_int, argtypes
-                    fns[entry] = fn
-                _libs[name] = fns
-        return log
+    return _native.build(*(LIBS[name] for name in names), verbose=verbose)
 
 
 def _entry(name, entry=None):
     """The loaded function ``entry`` of library ``name`` (its launch by
     default), built first if need be."""
-    if name not in _libs:
-        build((name,))
-    return _libs[name][entry or next(iter(_ENTRY[name]))]
+    return LIBS[name].fn(entry)
 
 
 def gru_direction_plain(x_gates, w_hh_t, b_hh, reverse=False):

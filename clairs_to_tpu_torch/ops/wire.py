@@ -9,56 +9,42 @@ the engine casts any other integral input to one first.
 The routine is compiled by the host's C++ compiler (OpenMP, no
 ``-march=native``) into ``build/kernels/libwire.so`` at the repository
 root on first use, again whenever its source is newer, and loaded with
-ctypes (``ops/gru.py``'s staleness check and build under a temporary name).
-A failed build raises; there is no fallback.
+ctypes (``ops/_native.py``).  A failed build raises; there is no fallback.
 """
 
 import ctypes
-import os
 import shutil
-import threading
 
 import numpy as np
 import torch
 
-from clairs_to_tpu_torch.ops.gru import BUILD_DIR, finish_compile, stale, start_compile
+from clairs_to_tpu_torch.ops import _native
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "wire.cpp")
-_SO = os.path.join(BUILD_DIR, "libwire.so")
 VIEW = (33, 34)
 
 _P = ctypes.c_void_p
-_fn = None
-_lock = threading.Lock()
 
 
-def _compiler():
+def _command(src, verbose=False):
+    """The host compiler's arguments that build ``src`` (``verbose`` unused)."""
     for cand in ("c++", "g++"):
         path = shutil.which(cand)
         if path:
-            return path
+            return [path, "-O3", "-std=c++17", "-fopenmp", "-shared", "-fPIC", src]
     raise RuntimeError("no C++ compiler (c++ or g++) found: the engine's wire "
                        "routine is built from csrc/wire.cpp")
 
 
+LIB = _native.Library("wire.cpp", "libwire.so",
+                      {"wire_pack_int32": [_P] * 4 + [ctypes.c_int64] * 2 + [_P] * 2
+                       + [ctypes.c_int]}, command=_command)
+
+
 def build():
     """Compile ``csrc/wire.cpp`` if the library is missing or older than it,
-    and load it.  Raises with the compiler's output if the build fails."""
-    global _fn
-    with _lock:
-        if _fn is not None:
-            return _fn
-        if stale(SOURCE, _SO):
-            cmd = [_compiler(), "-O3", "-std=c++17", "-fopenmp", "-shared", "-fPIC", SOURCE]
-            rc, _out, err = finish_compile(start_compile(cmd, _SO), _SO)
-            if rc != 0:
-                raise RuntimeError(f"building {os.path.basename(SOURCE)} failed ({rc}):\n{err}")
-        fn = ctypes.CDLL(_SO).wire_pack_int32
-        fn.restype = ctypes.c_int
-        fn.argtypes = [_P] * 4 + [ctypes.c_int64] * 2 + [_P] * 2 + [ctypes.c_int]
-        _fn = fn
-        return fn
+    and load it; returns the routine.  Raises with the compiler's output if
+    the build fails."""
+    return LIB.fn()
 
 
 def takes(x):

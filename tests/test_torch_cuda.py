@@ -164,10 +164,10 @@ def test_unbuildable_backward_raises_in_training(cuda, tmp_path, monkeypatch):
     from clairs_to_tpu_torch.train import DualTrainer, TrainConfig
 
     broken = tmp_path / "gru_bwd.cu"
-    broken.write_text(open(tgru.SOURCE_BWD).read() + "\nthis is not C++;\n")
-    monkeypatch.setattr(tgru, "SOURCE_BWD", str(broken))
-    monkeypatch.setattr(tgru, "_SO_BWD", str(tmp_path / "libgru_bwd.so"))
-    monkeypatch.delitem(tgru._libs, "gru_bwd", raising=False)
+    broken.write_text(open(tgru.LIBS["gru_bwd"].source).read() + "\nthis is not C++;\n")
+    monkeypatch.setattr(tgru.LIBS["gru_bwd"], "source", str(broken))
+    monkeypatch.setattr(tgru.LIBS["gru_bwd"], "so", str(tmp_path / "libgru_bwd.so"))
+    monkeypatch.setattr(tgru.LIBS["gru_bwd"], "fns", None)
     tgru.build(("gru",))
     tr = DualTrainer("snv", TrainConfig(dropout_rate=0.0), TINY_CVT, TINY_BIGRU, device="cuda")
     x = torch.zeros(16, 33, 34, device=cuda)
@@ -175,7 +175,7 @@ def test_unbuildable_backward_raises_in_training(cuda, tmp_path, monkeypatch):
     loss = tr.loss(x, x, labels, 1 - labels)
     with pytest.raises(RuntimeError, match="nvcc failed on gru_bwd.cu"):
         loss.backward()
-    assert "gru_bwd" not in tgru._libs
+    assert tgru.LIBS["gru_bwd"].fns is None
 
 
 def test_training_step_on_the_card_matches_the_cpu(cuda):

@@ -270,11 +270,12 @@ def test_a_failed_wire_build_raises(monkeypatch, tmp_path):
     the engine never falls back in silence."""
     broken = tmp_path / "wire.cpp"
     broken.write_text("this is not C++\n")
-    monkeypatch.setattr(wire, "SOURCE", str(broken))
-    monkeypatch.setattr(wire, "_SO", str(tmp_path / "libwire.so"))
-    monkeypatch.setattr(wire, "_fn", None)
-    with pytest.raises(RuntimeError, match="building wire.cpp failed"):
+    monkeypatch.setattr(wire.LIB, "source", str(broken))
+    monkeypatch.setattr(wire.LIB, "so", str(tmp_path / "libwire.so"))
+    monkeypatch.setattr(wire.LIB, "fns", None)
+    with pytest.raises(RuntimeError, match="failed on wire.cpp"):
         wire.build()
+    assert wire.LIB.fns is None
 
 
 def test_fused_matches_jax(engines):

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from clairs_to_tpu.models import bigru
+from clairs_to_tpu_torch.ops import _native
 from clairs_to_tpu_torch.ops import gru as tgru
 
 torch.set_num_threads(1)
@@ -174,11 +175,10 @@ def test_backward_build_failure_raises(tmp_path, monkeypatch):
     fake = tmp_path / "nvcc"
     fake.write_text("#!/bin/sh\necho 'error: broken source' >&2\nexit 1\n")
     fake.chmod(0o755)
-    monkeypatch.setattr(tgru, "_nvcc", lambda: str(fake))
-    monkeypatch.setattr(tgru, "BUILD_DIR", str(tmp_path))
-    monkeypatch.setattr(tgru, "_SO_BWD", str(tmp_path / "libgru_bwd.so"))
-    monkeypatch.delitem(tgru._libs, "gru_bwd", raising=False)
+    monkeypatch.setattr(_native, "nvcc", lambda: str(fake))
+    monkeypatch.setattr(tgru.LIBS["gru_bwd"], "so", str(tmp_path / "libgru_bwd.so"))
+    monkeypatch.setattr(tgru.LIBS["gru_bwd"], "fns", None)
     with pytest.raises(RuntimeError, match="nvcc failed on gru_bwd.cu"):
         tgru.build(("gru_bwd",))
-    assert "gru_bwd" not in tgru._libs
+    assert tgru.LIBS["gru_bwd"].fns is None
     assert not os.path.exists(tmp_path / "libgru_bwd.so")

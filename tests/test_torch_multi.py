@@ -125,6 +125,7 @@ def test_two_process_run_matches_single_and_jax(dense, single, tmp_path):
     for rank, text in enumerate(touts):
         assert f"[INFO] Host {rank}/2: owns 2/4 chunks" in text
         assert '"gru_launches": 0' in text       # the counter is there; no GPU here
+        assert '"dwproj_launches": 0' in text
     # rank 1 stops after the barrier: rank 0 alone merges and writes the output
     assert "host 0 merges the output" in touts[1] and "SNV output" not in touts[1]
     assert "SNV output" in touts[0] and "Indel output" in touts[0]

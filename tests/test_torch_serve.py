@@ -117,6 +117,7 @@ def test_serve_two_calls_reuse_engines(server, ds, tmp_path):
     assert _body(r1["snv_vcf"]) == _body(r2["snv_vcf"]) and len(_body(r1["snv_vcf"])) > 1
     assert r2["metrics"]["counters"]["candidates"] > 0
     assert r2["metrics"]["counters"]["gru_launches"] == 0      # a CPU run launches no kernel
+    assert r2["metrics"]["counters"]["dwproj_launches"] == 0
     assert "load_engines" not in r2["metrics"]["stages"]       # the warm call loads nothing
     health = _health(server)
     assert health["status"] == "ok" and len(health["engines"]) == 1

@@ -10,12 +10,12 @@ own, and the gradients stay the graph's buffers.  A new batch shape captures
 once more.
 
 The two trainers run with cuDNN held to its deterministic algorithms.  By
-default cuDNN takes for the CvT's convolutions a weight-gradient algorithm
-(``wgrad_alg0_engine``) that it documents as not deterministic, so two eager
-steps from one state already differ: on an H100, by up to 8e-5 of a leaf's
-largest value over five steps, since AdamW's first steps move a value by
-about the learning rate whatever its gradient's size, and a gradient near 0
-can come out with either sign.  With the same deterministic kernels on both
+default cuDNN takes for the CvT's 1x1 convolutions and stage embeds a
+weight-gradient algorithm (``wgrad_alg0_engine``) that it documents as not
+deterministic, so two eager steps from one state already differ: on an
+H100, by up to 8e-5 of a leaf's largest value over five steps, since
+AdamW's first steps move a value by about the learning rate whatever its
+gradient's size, and a gradient near 0 can come out with either sign.  With the same deterministic kernels on both
 sides, the graph and the eager step agree to 1e-6.
 
 The spans and counters of a capture are checked on a step of their own,
