@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port (clairs_to_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--prev-source OLD_GRU_CU] [--prev-bwd-source OLD_GRU_BWD_CU]
+    python3 chip_smoke.py
 
 Phases, each fatal on failure:
   1. build the GRU kernels (csrc/gru.cu, the forward, and csrc/gru_bwd.cu,
@@ -9,9 +9,7 @@ Phases, each fatal on failure:
      (H in {16, 24, 128, 192}, B in {8192, 8191, 4096, 1000}, both
      directions) and time it, with x_gates cold in L2, beside the plain
      version and cuDNN's torch.nn.GRU (a yardstick only).
-     With --prev-source, an earlier gru.cu (the same C entry point, taking
-     W_hh^T unpacked) is built beside it and the two are timed in turns:
-     old, new, new, old.  Then the backward kernel at the training shapes
+     Then the backward kernel at the training shapes
      (T=33, H in {128, 192}, B in {800, 256}, both directions), with its
      launch geometry (cluster size, CTAs, rows a cluster, clusters the card
      runs at once, shared memory a CTA): against
@@ -19,12 +17,8 @@ Phases, each fatal on failure:
      against autograd through gru_direction_plain from that loop's own
      output, each gradient within 1e-5 of the largest reference value; timed
      cold in L2 beside the plain version and the backward of cuDNN's
-     torch.nn.GRU (torch.autograd.grad of its output).
-     With --prev-bwd-source, an earlier gru_bwd.cu (the C entry point of
-     the first backward kernel: W_hh^T and W_hh unpacked, no geometry) is
-     built beside it, held to the new kernel within 1e-5 and the two are
-     timed in turns at each of the four shapes: old, new, new, old.  Then
-     the CvT's depthwise projection kernels (csrc/dwproj.cu) at the flagship
+     torch.nn.GRU (torch.autograd.grad of its output).  Then the CvT's
+     depthwise projection kernels (csrc/dwproj.cu) at the flagship
      SNV CvT's 26 projections in the net's layouts, B=800 and B=8192:
      against dwproj_plain under autograd within 1e-5, the backward bit-equal
      over two runs, and each projection's forward and forward + backward
@@ -56,9 +50,10 @@ Phases, each fatal on failure:
      each request's seconds stand beside the batch run's (WARM_SAVING);
   8. two processes on the one card: ranks 0 and 1 of one coordinator on
      loopback as ``python -m clairs_to_tpu_torch run`` children with
-     ``--chunk_num 4``, started with the two forward kernels (the GRU's and
-     the depthwise projection's) and the two C++ libraries of an ONT run
-     deleted, so both build them at once.  Both must own chunks and launch
+     ``--chunk_num 4``, started with every library an ONT run loads
+     deleted from build/kernels/ (the GRU's and the depthwise projection's
+     forward kernels, the engine's wire routine, the decoder and the verdict
+     library), so both build them at once.  Both must own chunks and launch
      the kernels, only rank 0 may write the output, and the output must
      equal a single-process run's;
   9. replicas on the one card: an engine with ``devices=[cuda:0, cuda:0]``
@@ -99,7 +94,6 @@ build/chip_smoke/ in the checkout.
 """
 
 import argparse
-import ctypes
 import json
 import os
 import re
@@ -219,61 +213,6 @@ def _rel(got, want):
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
 
-def start_prev_build(src, name="libgru_prev.so"):
-    """Start nvcc on an earlier kernel source; returns (process, library path)."""
-    from clairs_to_tpu_torch.ops import _native
-
-    so = os.path.join(WORK, name)
-    cmd = [*_native.nvcc_command(os.path.abspath(src)), "-o", so]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so
-
-
-def load_prev(build):
-    """The earlier kernel as a function of (x_gates, w_hh_t, b_hh)."""
-    proc, so = build
-    diag, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on the previous gru.cu:\n{diag}")
-    fn = ctypes.CDLL(so).gru_direction_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-
-    def run(xg, w, b):
-        steps, B, _ = xg.shape
-        out = torch.empty((steps, B, w.shape[0]), dtype=torch.float32, device=xg.device)
-        err = fn(xg.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), steps, B,
-                 w.shape[0], 0, torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"previous gru kernel launch failed: cudaError {err}")
-        return out
-    return run
-
-
-def load_prev_bwd(build):
-    """The earlier backward kernel (W_hh^T and W_hh unpacked, its wrapper's
-    transpose included) as a function of (x_gates, w_hh_t, b_hh, out,
-    grad_out) -> (grad_x_gates, grad_hg)."""
-    proc, so = build
-    diag, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on the previous gru_bwd.cu:\n{diag}")
-    fn = ctypes.CDLL(so).gru_direction_backward_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-
-    def run(xg, w, b, out, gout):
-        steps, B, _ = xg.shape
-        gx, ghg = torch.empty_like(xg), torch.empty_like(xg)
-        w_hh = w.t().contiguous()
-        err = fn(xg.data_ptr(), w.data_ptr(), w_hh.data_ptr(), b.data_ptr(), out.data_ptr(),
-                 gout.data_ptr(), gx.data_ptr(), ghg.data_ptr(), steps, B, w.shape[0], 0,
-                 torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"previous gru_bwd kernel launch failed: cudaError {err}")
-        return gx, ghg
-    return run
-
-
 def phase_build(gru):
     from clairs_to_tpu_torch.ops import dwproj
 
@@ -289,7 +228,7 @@ def phase_build(gru):
             log(f"[build] {line.strip()}")
 
 
-def phase_kernel(gru, dev, prev=None):
+def phase_kernel(gru, dev):
     rng = np.random.default_rng(0)
     max_err, timings = 0.0, {}
     for H in (16, 24, 128, 192):
@@ -317,17 +256,6 @@ def phase_kernel(gru, dev, prev=None):
                         plain_ms=cuda_ms(lambda: gru.gru_direction_plain(xg, w, b), 10),
                         library_ms=cuda_ms(lambda: lib(x_in), 20),
                     )
-                if prev is not None:
-                    err = (prev(xg, w, b) - gru.gru_direction(xg, w, b)).abs().max().item()
-                    if err > KERNEL_TOL:
-                        raise AssertionError(f"previous kernel disagrees at H={H} ({err:.3e})")
-                    turns = [cold_ms(lambda: prev(xg, w, b)),
-                             cold_ms(lambda: gru.gru_direction(xg, w, b)),
-                             cold_ms(lambda: gru.gru_direction(xg, w, b)),
-                             cold_ms(lambda: prev(xg, w, b))]
-                    t["turns_old_new_new_old_ms"] = turns
-                    t["prev_ms"] = (turns[0] + turns[3]) / 2
-                    t["kernel_ms"] = (turns[1] + turns[2]) / 2
                 t.update(gru_bound_ms(B, H))
                 timings[H] = t
                 log(f"[kernel] timing T={T} B={B} H={H}: " + json.dumps(t))
@@ -337,12 +265,11 @@ def phase_kernel(gru, dev, prev=None):
 GRADS = ("grad_x_gates", "grad_w_hh_t", "grad_b_hh")
 
 
-def phase_backward(gru, dev, prev=None):
+def phase_backward(gru, dev):
     """Phase 2, the backward kernel at the training shapes: held to
     gru_direction_backward_plain (from the forward kernel's output) and to
     autograd through gru_direction_plain (the kernel given that loop's own
-    output), then timed; with ``prev`` (an earlier backward kernel), held to
-    it and timed in turns with it.  Returns (the largest relative and
+    output), then timed.  Returns (the largest relative and
     absolute differences, timings and launch geometry by (H, B))."""
     rng = np.random.default_rng(3)
     worst_rel, worst_abs, timings = 0.0, 0.0, {}
@@ -393,23 +320,6 @@ def phase_backward(gru, dev, prev=None):
                 library_ms=cuda_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, gout,
                                                                retain_graph=True), 10),
             )
-            if prev is not None:
-                new = gru.gru_direction_backward_kernel(xg, w, b, out, gout)
-                err = max(_rel(o, n) for o, n in zip(prev(xg, w, b, out, gout), new))
-                log(f"[backward] previous kernel vs this one H={H} B={B}: max|d|/max|ref| "
-                    f"{err:.2e}")
-                if err > BWD_TOL:
-                    raise AssertionError(f"previous backward kernel disagrees at H={H} B={B} "
-                                         f"({err:.3e})")
-                def this():
-                    return gru.gru_direction_backward_kernel(xg, w, b, out, gout)
-
-                def old():
-                    return prev(xg, w, b, out, gout)
-                turns = [cold_ms(old), cold_ms(this), cold_ms(this), cold_ms(old)]
-                t["turns_old_new_new_old_ms"] = turns
-                t["prev_ms"] = (turns[0] + turns[3]) / 2
-                t["kernel_ms"] = (turns[1] + turns[2]) / 2
             t.update(gru_bwd_bound_ms(B, H))
             t["geometry"] = geo
             timings[H, B] = t
@@ -546,10 +456,11 @@ def _flagship(mode, dev):
     from clairs_to_tpu_torch.models.checkpoint import load_checkpoint_auto
     from clairs_to_tpu_torch.ops.posterior import load_likelihood_matrix
 
-    sub, n_al = ("", 4) if mode == "snv" else ("indel", 6)
+    sub = "" if mode == "snv" else "indel"
     aff, cc = load_checkpoint_auto(os.path.join(ASSETS, sub, "aff.npz"), mode, "cvt", dev)
     neg, gc = load_checkpoint_auto(os.path.join(ASSETS, sub, "neg.npz"), mode, "bigru", dev)
-    lik = load_likelihood_matrix(os.path.join(ASSETS, sub, "likelihood_matrix.txt"), n_al)
+    lik = load_likelihood_matrix(os.path.join(ASSETS, sub, "likelihood_matrix.txt"),
+                                 len(cc.alleles))
     return aff, neg, lik, dict(mode=mode, device_batch=8192, cvt_config=cc, bigru_config=gc)
 
 
@@ -672,9 +583,9 @@ def _launches():
 
 def _projections(mode):
     """The depthwise projections of a CvT forward: two a transformer block."""
-    from clairs_to_tpu_torch.models import cvt
+    from clairs_to_tpu_torch.models import mode_configs
 
-    return 2 * sum((cvt.SNV_CVT_CONFIG if mode == "snv" else cvt.INDEL_CVT_CONFIG).depths)
+    return 2 * sum(mode_configs(mode)[0].depths)
 
 
 def _check_dwproj(tag, launches, dw_launches):
@@ -968,14 +879,14 @@ def _verdict_line(text):
 def phase_two_process(card, ds, pon, n_candidates):
     """Phase 8: ranks 0 and 1 of one coordinator, both on cuda:0, against a
     single-process run with the same ``--chunk_num 4`` (which must find the
-    ``n_candidates`` of the one-chunk run).  The two forward kernels (the
-    GRU's and the depthwise projection's) and the two C++ libraries an ONT
-    run loads are deleted first (this process keeps its loaded copies), so
+    ``n_candidates`` of the one-chunk run).  Every library an ONT run loads
+    (the two forward kernels, the wire routine, the decoder and the verdict
+    library) is deleted first (this process keeps its loaded copies), so
     both ranks build each of them at the same time."""
     import socket
 
     from clairs_to_tpu_torch.bamio import native
-    from clairs_to_tpu_torch.ops import dwproj, gru
+    from clairs_to_tpu_torch.ops import dwproj, gru, wire
     from clairs_to_tpu_torch.postcall import verdict_native
 
     extra = ("--panel_of_normals", pon, "--chunk_num", "4")
@@ -988,7 +899,8 @@ def phase_two_process(card, ds, pon, n_candidates):
                              f"{n_candidates}")
 
     # what an ONT run loads
-    built = [gru.LIBS["gru"].so, dwproj.LIB.so, native._SO, verdict_native._SO]
+    built = [lib.so for lib in (gru.LIBS["gru"], dwproj.LIB, wire.LIB, native.LIB,
+                                verdict_native.LIB)]
     for so in built:
         os.remove(so)
     with socket.socket() as s:
@@ -1046,7 +958,7 @@ def phase_two_process(card, ds, pon, n_candidates):
         raise AssertionError("two-process: rank 1 must stop at the barrier and rank 0 write "
                              "the output")
     log(f"[two-process] {card}: two processes, 2 chunks each: {wall2:.2f} s wall, the build "
-        f"of two kernels and two C++ libraries by both ranks included")
+        f"of two kernels and three C++ libraries by both ranks included")
     _same_calls("two-process", two_dir, one_dir, who=("two processes", "one process"))
     v_two = _verdict_line(texts[0])
     v_one = _verdict_line(open(os.path.join(one_dir, "run_clairs_to_tpu_torch.log")).read())
@@ -1463,11 +1375,7 @@ def phase_end_to_end(card, genome_len, ilmn_len):
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--prev-source", help="an earlier csrc/gru.cu to time against")
-    ap.add_argument("--prev-bwd-source", help="an earlier csrc/gru_bwd.cu (the first backward "
-                                              "kernel's C entry point) to time against")
-    args = ap.parse_args(argv)
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device; this script runs only on a GPU\n")
         return 2
@@ -1485,14 +1393,9 @@ def main(argv=None):
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
-    prev_build = start_prev_build(args.prev_source) if args.prev_source else None
-    prev_bwd_build = (start_prev_build(args.prev_bwd_source, "libgru_bwd_prev.so")
-                      if args.prev_bwd_source else None)
     phase_build(gru)
-    prev = load_prev(prev_build) if prev_build else None
-    prev_bwd = load_prev_bwd(prev_bwd_build) if prev_bwd_build else None
-    max_err, timings = phase_kernel(gru, dev, prev)
-    bwd_err, bwd_timings = phase_backward(gru, dev, prev_bwd)
+    max_err, timings = phase_kernel(gru, dev)
+    bwd_err, bwd_timings = phase_backward(gru, dev)
     dw = phase_dwproj(dev)
     engine = phase_engine(dev)
     e2e = phase_end_to_end(card, GENOME_LEN, ILMN_GENOME_LEN)
@@ -1515,8 +1418,6 @@ def main(argv=None):
         bound_fp32_ms=t["bound_fp32_ms"], shape=f"T={T} B=8192 H=192",
         h128=timings[128],
     )]
-    if "prev_ms" in t:
-        kernels[0]["prev_ms"] = t["prev_ms"]
     tb = bwd_timings[192, 800]
     kernels.append(dict(
         name="gru_direction_backward", route="cuda", source="clairs_to_tpu_torch/csrc/gru_bwd.cu",
@@ -1532,8 +1433,6 @@ def main(argv=None):
         other_shapes={f"H={h} B={b}": v for (h, b), v in bwd_timings.items() if (h, b) != (192, 800)},
         geometry=tb["geometry"],
     ))
-    if "prev_ms" in tb:
-        kernels[1]["prev_ms"] = tb["prev_ms"]
     step, batch = dw[800]["totals"], dw[8192]["totals"]
     kernels.append(dict(
         name="dwproj", route="cuda", source="clairs_to_tpu_torch/csrc/dwproj.cu",

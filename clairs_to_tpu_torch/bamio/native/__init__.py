@@ -1,218 +1,80 @@
 # Port copy of clairs_to_tpu/bamio/native/__init__.py.
 """ctypes binding for the native BAM -> entry-table decoder.
 
-Builds the .so on first use if missing (g++ + zlib are baked into the
-image); falls back cleanly when compilation is impossible so the pure-Python
-path (bamio/bam.py + PileupEngine.add_read) keeps everything working.
+``pileup_native.cpp`` is built on first use (g++ and zlib) into
+``build/kernels/libpileup.so`` through ``ops/_native.py``; when it does not
+build or load, ``get_lib()`` returns None and the pure-Python path
+(bamio/bam.py + PileupEngine.add_read) keeps everything working.
 """
 
 import ctypes
 import os
-import subprocess
-import threading
 
 import numpy as np
 
-_DIR = os.path.dirname(os.path.abspath(__file__))
-_SO = os.path.join(_DIR, "libpileup_native.so")
-_SRC = os.path.join(_DIR, "pileup_native.cpp")
+from clairs_to_tpu_torch.ops import _native
 
-_lib = None
-_load_error = None
-_lock = threading.Lock()
+_P, _S, _I, _I64 = ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_int64
+_D, _I16, _I32 = ctypes.c_double, ctypes.c_int16, ctypes.c_int32
+_AGG_HEAD = [_I64] + [_P] * 8 + [_I64, _P]    # n, the eight entry columns, iseq offsets
+
+LIB = _native.Library(
+    os.path.join(os.path.dirname(os.path.abspath(__file__)), "pileup_native.cpp"),
+    "libpileup.so", {
+        "pileup_load": (_P, [_S, _S, _I64, _I64, _I, _I, _I]),
+        "pileup_n_entries": (_I64, [_P]),
+        "pileup_n_reads": (_I64, [_P]),
+        "pileup_iseq_blob_len": (_I64, [_P]),
+        "pileup_export": (None, [_P] * 12),
+        "pileup_free": (None, [_P]),
+        "pileup_open_stream": (_P, [_S]),
+        "pileup_close_stream": (None, [_P]),
+        "pileup_stream_window": (_P, [_P, _S, _I64, _I64, _I, _I, _I]),
+        "pileup_stream_window_begin": (_P, [_P, _S, _I64, _I64, _I, _I, _I, _P, _P]),
+        "pileup_stream_window_fill": (_I64, [_P] * 14),
+        "pileup_stream_window_abort": (None, [_P]),
+        "entry_channel_counts": (None, [_I64] + [_P] * 9 + [_I, _I64, _I64, _I, _I, _I, _I,
+                                                             _P, _P]),
+        "entry_candidate_prefilter": (None, [_I64] + [_P] * 5 + [_I, _I, _I64, _I64, _P, _I,
+                                                                  _D, _D, _I, _I, _P]),
+        "entry_group_count": (None, [_I64, _P, _I64, _P, _P]),
+        "entry_group_fill": (None, [_I64, _P, _I64, _P, _P, _P]),
+        "entry_alt_aggregate": (_I64, _AGG_HEAD + [_I, _I, _S, _I64, _I64, _P, _P, _P, _P,
+                                                   _I64, _I64, _P, _P]),
+        "window_candidate_prefilter": (None, [_I64] + [_P] * 5 + [_I, _D, _D, _I, _I, _P]),
+        "entry_candidate_gate": (None, _AGG_HEAD + [_I, _I, _S, _I64, _I64, _I, _D, _D, _I,
+                                                    _I, _P]),
+        "entry_alt_info": (_I64, _AGG_HEAD + [_I, _I, _I, _S, _I64, _I64, _P, _P, _P, _I64,
+                                              _P]),
+        "entry_filter_stats": (None, [_I64, _I64] + [_P] * 8 + [_I64, _I64, _I16, _I16, _I32,
+                                                                 _P] + [_P] * 9),
+        "entry_filter_extract": (None, [_I64, _I64] + [_P] * 8 + [_I64, _I64, _I16, _I16, _P]
+                                 + [_P] * 13),
+        "ref_negate_channels": (None, [_I64, _I32, _P, _P, _I32, _P]),
+        "pileup_window_reduce": (_P, [_P, _S, _I64, _I64] + [_I] * 10 + [_P] * 8
+                                 + [_I64, _P, _I, _I] + [_P] * 4),
+        "pileup_window_filter_assemble": (None, [_P, _I64, _P]),
+        "pileup_window_filter_export_assembled": (None, [_P] * 9),
+        "pileup_window_filter_sizes": (None, [_P] * 4),
+        "pileup_window_filter_export": (None, [_P] * 11),
+        "pileup_window_filter_export_startend": (None, [_P] * 5),
+        "pileup_window_entries_count": (None, [_P, _P, _I64, _I64, _P, _P]),
+        "pileup_window_entries_fill": (_I64, [_P, _P, _I64, _I64] + [_P] * 13),
+        "pileup_window_release": (None, [_P]),
+        "pileup_window_reads_select": (_I64, [_P, _I64, _I64, _I]),
+        "pileup_window_reads_sizes": (None, [_P, _P, _P]),
+        "pileup_window_reads_export": (None, [_P] * 8),
+    }, command=_native.host_command(libs=["-lz"]))
 
 # extended span margin for the filter-view dense stats: verdict windows
 # reach at most FLANKING (100) bp past the chunk region edge
 FILT_MARGIN = 128
 
 
-def _build():
-    # to a name of this process's own, then renamed: two ranks of one run may
-    # build at the same time, and neither may load a half-written library
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    cmd = [
-        "g++", "-O3", "-std=c++17", "-shared", "-fPIC",
-        "-o", tmp, _SRC, "-lz",
-    ]
-    subprocess.run(cmd, check=True, capture_output=True)
-    os.replace(tmp, _SO)
-
-
 def get_lib():
-    # decode workers reach this at the same time: one builds and loads, the
-    # others wait for it
-    with _lock:
-        return _get_lib_locked()
-
-
-def _get_lib_locked():
-    global _lib, _load_error
-    if _lib is not None or _load_error is not None:
-        return _lib
-    try:
-        if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-            _build()
-        lib = ctypes.CDLL(_SO)
-        lib.pileup_load.restype = ctypes.c_void_p
-        lib.pileup_load.argtypes = [
-            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ]
-        lib.pileup_n_entries.restype = ctypes.c_int64
-        lib.pileup_n_entries.argtypes = [ctypes.c_void_p]
-        lib.pileup_n_reads.restype = ctypes.c_int64
-        lib.pileup_n_reads.argtypes = [ctypes.c_void_p]
-        lib.pileup_iseq_blob_len.restype = ctypes.c_int64
-        lib.pileup_iseq_blob_len.argtypes = [ctypes.c_void_p]
-        lib.pileup_export.restype = None
-        lib.pileup_export.argtypes = [ctypes.c_void_p] + [ctypes.c_void_p] * 11
-        lib.pileup_free.restype = None
-        lib.pileup_free.argtypes = [ctypes.c_void_p]
-        lib.pileup_open_stream.restype = ctypes.c_void_p
-        lib.pileup_open_stream.argtypes = [ctypes.c_char_p]
-        lib.pileup_close_stream.restype = None
-        lib.pileup_close_stream.argtypes = [ctypes.c_void_p]
-        lib.pileup_stream_window.restype = ctypes.c_void_p
-        lib.pileup_stream_window.argtypes = [
-            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ]
-        lib.pileup_stream_window_begin.restype = ctypes.c_void_p
-        lib.pileup_stream_window_begin.argtypes = [
-            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.pileup_stream_window_fill.restype = ctypes.c_int64
-        lib.pileup_stream_window_fill.argtypes = [
-            ctypes.c_void_p] + [ctypes.c_void_p] * 13
-        lib.pileup_stream_window_abort.restype = None
-        lib.pileup_stream_window_abort.argtypes = [ctypes.c_void_p]
-        lib.entry_channel_counts.restype = None
-        lib.entry_channel_counts.argtypes = [
-            ctypes.c_int64] + [ctypes.c_void_p] * 9 + [
-            ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.entry_candidate_prefilter.restype = None
-        lib.entry_candidate_prefilter.argtypes = [
-            ctypes.c_int64] + [ctypes.c_void_p] * 5 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_double,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.entry_group_count.restype = None
-        lib.entry_group_count.argtypes = [
-            ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.entry_group_fill.restype = None
-        lib.entry_group_fill.argtypes = [
-            ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.entry_alt_aggregate.restype = ctypes.c_int64
-        lib.entry_alt_aggregate.argtypes = [
-            ctypes.c_int64] + [ctypes.c_void_p] * 8 + [
-            ctypes.c_int64, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int,
-            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.window_candidate_prefilter.restype = None
-        lib.window_candidate_prefilter.argtypes = [
-            ctypes.c_int64] + [ctypes.c_void_p] * 5 + [
-            ctypes.c_int, ctypes.c_double, ctypes.c_double,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.entry_candidate_gate.restype = None
-        lib.entry_candidate_gate.argtypes = [
-            ctypes.c_int64] + [ctypes.c_void_p] * 8 + [
-            ctypes.c_int64, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int,
-            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int, ctypes.c_double, ctypes.c_double, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.entry_alt_info.restype = ctypes.c_int64
-        lib.entry_alt_info.argtypes = [
-            ctypes.c_int64] + [ctypes.c_void_p] * 8 + [
-            ctypes.c_int64, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-        ]
-        lib.entry_filter_stats.restype = None
-        lib.entry_filter_stats.argtypes = (
-            [ctypes.c_int64, ctypes.c_int64] + [ctypes.c_void_p] * 8
-            + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int16,
-               ctypes.c_int16, ctypes.c_int32, ctypes.c_void_p]
-            + [ctypes.c_void_p] * 9
-        )
-        lib.entry_filter_extract.restype = None
-        lib.entry_filter_extract.argtypes = (
-            [ctypes.c_int64, ctypes.c_int64] + [ctypes.c_void_p] * 8
-            + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int16,
-               ctypes.c_int16, ctypes.c_void_p]
-            + [ctypes.c_void_p] * 13
-        )
-        lib.ref_negate_channels.restype = None
-        lib.ref_negate_channels.argtypes = [
-            ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p,
-        ]
-        lib.pileup_window_reduce.restype = ctypes.c_void_p
-        lib.pileup_window_reduce.argtypes = (
-            [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64]
-            + [ctypes.c_int] * 10
-            + [ctypes.c_void_p] * 8
-            + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-            + [ctypes.c_void_p] * 4
-        )
-        lib.pileup_window_filter_assemble.restype = None
-        lib.pileup_window_filter_assemble.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
-        lib.pileup_window_filter_export_assembled.restype = None
-        lib.pileup_window_filter_export_assembled.argtypes = \
-            [ctypes.c_void_p] + [ctypes.c_void_p] * 8
-        lib.pileup_window_filter_sizes.restype = None
-        lib.pileup_window_filter_sizes.argtypes = [ctypes.c_void_p] + \
-            [ctypes.c_void_p] * 3
-        lib.pileup_window_filter_export.restype = None
-        lib.pileup_window_filter_export.argtypes = [ctypes.c_void_p] + \
-            [ctypes.c_void_p] * 10
-        lib.pileup_window_filter_export_startend.restype = None
-        lib.pileup_window_filter_export_startend.argtypes = \
-            [ctypes.c_void_p] + [ctypes.c_void_p] * 4
-        lib.pileup_window_entries_count.restype = None
-        lib.pileup_window_entries_count.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.pileup_window_entries_fill.restype = ctypes.c_int64
-        lib.pileup_window_entries_fill.argtypes = (
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64]
-            + [ctypes.c_void_p] * 13
-        )
-        lib.pileup_window_release.restype = None
-        lib.pileup_window_release.argtypes = [ctypes.c_void_p]
-        lib.pileup_window_reads_select.restype = ctypes.c_int64
-        lib.pileup_window_reads_select.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
-        lib.pileup_window_reads_sizes.restype = None
-        lib.pileup_window_reads_sizes.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-        lib.pileup_window_reads_export.restype = None
-        lib.pileup_window_reads_export.argtypes = \
-            [ctypes.c_void_p] + [ctypes.c_void_p] * 7
-        _lib = lib
-    except Exception as e:  # pragma: no cover
-        _load_error = e
-    return _lib
+    """The loaded decoder, or None when it does not build (``LIB.error``
+    says why); decode workers that ask at once wait for one build."""
+    return LIB.load_or_none()
 
 
 def available() -> bool:

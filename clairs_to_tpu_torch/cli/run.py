@@ -244,7 +244,7 @@ def load_engines(args, devices=None):
     import torch
 
     from clairs_to_tpu_torch.infer.engine import InferenceEngine, resolve_device
-    from clairs_to_tpu_torch.models import bigru, cvt
+    from clairs_to_tpu_torch.models import bigru, cvt, mode_configs
     from clairs_to_tpu_torch.models.checkpoint import load_checkpoint_auto
     from clairs_to_tpu_torch.ops.posterior import (
         load_likelihood_matrix,
@@ -280,19 +280,18 @@ def load_engines(args, devices=None):
         lik_path = resolve(
             args.snv_likelihood_matrix_data if mode == "snv"
             else args.indel_likelihood_matrix_data, prefix + "likelihood_matrix.txt")
-        n_alleles = 4 if mode == "snv" else 6
         gen = torch.Generator().manual_seed(seed)
+        cvt_cfg, gru_cfg = mode_configs(mode)
         if aff_path:
             aff, cvt_cfg = load_checkpoint_auto(aff_path, mode=mode, kind="cvt", device=device)
         else:
-            cvt_cfg = cvt.SNV_CVT_CONFIG if mode == "snv" else cvt.INDEL_CVT_CONFIG
             aff = cvt.CvT(cvt_cfg).reset_parameters(gen)
         if neg_path:
             neg, gru_cfg = load_checkpoint_auto(neg_path, mode=mode, kind="bigru",
                                                 device=device)
         else:
-            gru_cfg = bigru.SNV_BIGRU_CONFIG if mode == "snv" else bigru.INDEL_BIGRU_CONFIG
             neg = bigru.BiGRU(gru_cfg).reset_parameters(gen)
+        n_alleles = len(cvt_cfg.alleles)
         if not aff_path or not neg_path:
             print(f"[WARNING] No trained {mode} checkpoints found — using random weights.")
         lik = (
@@ -315,6 +314,16 @@ def load_engines(args, devices=None):
     if not _str2bool(args.disable_indel_calling):
         indel_engine = build("indel", 1)
     return snv_engine, indel_engine
+
+
+def warm_engines(engines):
+    """A one-row zero batch through each engine: the first forward builds
+    the kernels and cuDNN's plans."""
+    z = np.zeros((1, 33, 34), np.int16)
+    c = np.ones(1, np.float32)
+    for eng in engines:
+        if eng is not None:
+            eng.run_batch(z, z, c, c)
 
 
 # The reference's 4 default PoNs and their allele-matching modes
@@ -888,13 +897,9 @@ def _pipeline_body(args, metrics, t0, tee, engines=None):
     )
     apply_hap_filter, apply_postfilter = _filter_stages(args)
     # the decode-ahead workers assemble the filters' site-independent data
-    options.precompute_filter_assembly = (
-        (apply_hap_filter or apply_postfilter)
-        and os.environ.get("CLAIRS_TO_TPU_PRECOMPUTE_ASSEMBLY", "1") != "0")
+    options.precompute_filter_assembly = apply_hap_filter or apply_postfilter
     # decode-ahead workers: up to one per core, capped at 4
-    options.decode_workers = int(os.environ.get(
-        "CLAIRS_TO_TPU_DECODE_WORKERS",
-        max(1, min(args.threads - 1, (os.cpu_count() or 2), 4))))
+    options.decode_workers = max(1, min(args.threads - 1, (os.cpu_count() or 2), 4))
     pipe = CallingPipeline(fasta, args.tumor_bam_fn, None, None, options,
                            metrics=metrics)
     if args.min_bq is not None:
@@ -934,11 +939,7 @@ def _pipeline_body(args, metrics, t0, tee, engines=None):
         with metrics.stage("load_engines"):
             engines = load_engines(args, devices=run_devices(args))
         with metrics.stage("engine_warmup"):
-            # the first forward builds the GRU kernel and cuDNN's plans
-            for eng in engines:
-                if eng is not None:
-                    z = np.zeros((1, 33, 34), np.int16)
-                    eng.run_batch(z, z, np.ones(1, np.float32), np.ones(1, np.float32))
+            warm_engines(engines)
     pipe.snv_engine, pipe.indel_engine = engines
     call_indels = pipe.indel_engine is not None
 
@@ -990,7 +991,7 @@ def _pipeline_body(args, metrics, t0, tee, engines=None):
     # host-side candidate prep and dispatch
     from collections import deque
 
-    depth_ahead = max(1, int(os.environ.get("CLAIRS_TO_TPU_DISPATCH_AHEAD", "2")))
+    depth_ahead = 2
     inflight = deque()
     with metrics.stage("calling"), device_trace(args.trace_dir):
         for ch in chunk_iter:

@@ -9,14 +9,16 @@ PyTorch counterpart of clairs_to_tpu/infer/engine.py, with the same API:
       -> host float64 posterior + QUAL (ops/posterior.py)
 
 Batches are padded to a static ``device_batch``; padded rows are dropped on
-the host.  The wire format is the JAX engine's: one packed int16 tensor
-(AFF counts plus a coverage row) and an int16 NEG-minus-AFF delta, added
-in float32 on the device before the rescale; a float32 path remains for
-non-integral inputs.  The counts are encoded in one pass by ``ops/wire.py``
-straight into host buffers, padded to whole slices.  On
-CUDA the host buffers are pinned, the copies are ``non_blocking`` and each
-part of a slice records one CUDA event that ``result()`` waits on; on the
-CPU everything runs synchronously.
+the host.  Every batch goes in one layout, the JAX engine's wire format:
+``packed`` (rows 0-32 the AFF counts, row 33 columns 0/1 the coverages) and
+``second``, the NEG view, None when the views are one.  When every value
+fits, both are int16 and ``second`` is the NEG-minus-AFF delta, added in
+float32 on the device before the rescale; otherwise both are float32 and
+``second`` is the NEG view itself.  ``_pack`` writes them straight into
+host buffers, padded to whole slices (the int16 pair in one pass of
+``ops/wire.py``).  On CUDA the host buffers are pinned, the copies are
+``non_blocking`` and each part of a slice records one CUDA event that
+``result()`` waits on; on the CPU everything runs synchronously.
 
 Several devices (``devices=[...]``, the counterpart of the JAX engine's 1-D
 mesh): one replica of the two networks per device.  Every padded slice is
@@ -34,7 +36,7 @@ import torch
 from torch import nn
 
 from clairs_to_tpu_torch import config as cfg
-from clairs_to_tpu_torch.models import bigru, cvt
+from clairs_to_tpu_torch.models import bigru, cvt, mode_configs
 from clairs_to_tpu_torch.models.checkpoint import params_from_jax
 from clairs_to_tpu_torch.ops import posterior as post
 from clairs_to_tpu_torch.ops import wire
@@ -162,10 +164,9 @@ class InferenceEngine:
                         else [resolve_device(device)])
         self.device = self.devices[0]
         n_rep = len(self.devices)
-        self.cvt_config = cvt_config or (
-            cvt.SNV_CVT_CONFIG if mode == "snv" else cvt.INDEL_CVT_CONFIG)
-        self.bigru_config = bigru_config or (
-            bigru.SNV_BIGRU_CONFIG if mode == "snv" else bigru.INDEL_BIGRU_CONFIG)
+        default_cvt, default_bigru = mode_configs(mode)
+        self.cvt_config = cvt_config or default_cvt
+        self.bigru_config = bigru_config or default_bigru
         self.n_alleles = len(self.cvt_config.alleles)
         # the padded batch axis must split evenly across the replicas
         self.device_batch = -(-device_batch // n_rep) * n_rep
@@ -182,72 +183,34 @@ class InferenceEngine:
         self.neg_models = [neg.to(d) if i == 0 else copy.deepcopy(neg).to(d)
                            for i, d in enumerate(self.devices)]
         self.aff_model, self.neg_model = self.aff_models[0], self.neg_models[0]
-        self._lik_mat = torch.as_tensor(likelihood.matrices, dtype=torch.float32,
-                                        device=self.device)
-        self._aff_edges = torch.as_tensor(likelihood.aff_edges, dtype=torch.float32,
-                                          device=self.device)
-        self._neg_edges = torch.as_tensor(likelihood.neg_edges, dtype=torch.float32,
-                                          device=self.device)
-        self._zero_delta = [None] * n_rep   # device-resident int16 zeros, lazy
 
-    # ---- device programs ------------------------------------------------
-    def _net_probs(self, x_aff, x_neg, cov_aff, cov_neg, replica=0):
-        x_aff = _rescale(x_aff.float(), cov_aff, self.min_rescale_cov)
-        x_neg = _rescale(x_neg.float(), cov_neg, self.min_rescale_cov)
-        probs_aff = torch.softmax(self.aff_models[replica](x_aff), dim=-1)
-        probs_neg = torch.softmax(
-            self.neg_models[replica](x_neg, use_kernel=self.use_kernel), dim=-1)
-        return probs_aff, probs_neg
-
-    @staticmethod
-    def _stack_p1(probs_aff, probs_neg):
-        # (B, 2, A) class-1 probabilities: all the host posterior consumes
-        return torch.stack((probs_aff[..., 1], probs_neg[..., 1]), dim=1)
-
+    # ---- device program -------------------------------------------------
     @torch.inference_mode()
-    def _forward_full(self, x_aff, x_neg, cov_aff, cov_neg, replica=0):
-        return self._stack_p1(*self._net_probs(x_aff, x_neg, cov_aff, cov_neg, replica))
-
-    @torch.inference_mode()
-    def _forward_delta(self, packed, x_delta, replica=0):
-        """``packed`` (B,34,34) int16: rows 0-32 the AFF counts, row 33
-        columns 0/1 the AFF/NEG coverages; ``x_delta`` (B,33,34) int16 =
-        NEG - AFF.  The float32 add happens before the rescale, so the
-        result equals the full-view path for integral counts."""
+    def _forward(self, packed, second, replica=0):
+        """(B, 2, A) class-1 probabilities of a part in ``_pack``'s layout:
+        ``packed`` (B,34,34), rows 0-32 the AFF counts and row 33 columns 0/1
+        the AFF/NEG coverages; ``second`` None (NEG is AFF), the int16 NEG -
+        AFF delta, or the float32 NEG view.  The int16 delta is added in
+        float32 before the rescale, so both encodings give the same answer
+        for integral counts."""
         x_aff = packed[:, :33, :].float()
         cov_aff = packed[:, 33, 0].float()
         cov_neg = packed[:, 33, 1].float()
-        x_neg = x_aff + x_delta.float()
-        return self._stack_p1(*self._net_probs(x_aff, x_neg, cov_aff, cov_neg, replica))
-
-    @torch.inference_mode()
-    def _forward_fused(self, x_aff, x_neg, cov_aff, cov_neg):
-        probs_aff, probs_neg = self._net_probs(x_aff, x_neg, cov_aff, cov_neg)
-        posterior = post.posterior_probs_torch(
-            probs_aff[..., 1], probs_neg[..., 1], self._lik_mat, self._aff_edges,
-            self._neg_edges)
-        best_p, best = torch.max(posterior, dim=1)
-        return posterior, best, post.quality_score_torch(best_p)
+        if second is None:
+            x_neg = x_aff
+        elif second.dtype == torch.int16:
+            x_neg = x_aff + second.float()
+        else:
+            x_neg = second
+        x_aff = _rescale(x_aff, cov_aff, self.min_rescale_cov)
+        x_neg = _rescale(x_neg, cov_neg, self.min_rescale_cov)
+        probs_aff = torch.softmax(self.aff_models[replica](x_aff), dim=-1)
+        probs_neg = torch.softmax(
+            self.neg_models[replica](x_neg, use_kernel=self.use_kernel), dim=-1)
+        # all the host posterior consumes
+        return torch.stack((probs_aff[..., 1], probs_neg[..., 1]), dim=1)
 
     # ---- host API -------------------------------------------------------
-    def _pad(self, arr, value=0):
-        n = arr.shape[0]
-        if n == self.device_batch:
-            return arr
-        pad_width = [(0, self.device_batch - n)] + [(0, 0)] * (arr.ndim - 1)
-        return np.pad(arr, pad_width, constant_values=value)
-
-    def _put(self, arr, replica=0):
-        """Host numpy -> device tensor (pinned, non-blocking on CUDA).  A
-        tensor is a view of a buffer from ``_pack``, already pinned."""
-        device = self.devices[replica]
-        if isinstance(arr, torch.Tensor):
-            return arr.to(device, non_blocking=True) if device.type == "cuda" else arr
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if device.type != "cuda":
-            return t
-        return t.pin_memory().to(device, non_blocking=True)
-
     def _part(self, arr, replica):
         """Replica ``replica``'s rows of a padded slice."""
         rows = self.device_batch // len(self.devices)
@@ -268,17 +231,10 @@ class InferenceEngine:
             return None
         return None
 
-    def _pack(self, x_aff, x_neg, cov_aff, cov_neg):
-        """The int16 wire encoding of a batch, ``(packed, delta)``, padded to
-        whole slices: rows 0-32 of ``packed`` the AFF counts, row 33 columns
-        0/1 the coverages; the delta NEG - AFF, None when ``x_neg`` is None
-        (the views are one).  None when a value does not fit in int16: the
-        batch goes as float32.
-
-        One pass of ``ops/wire.py`` writes it straight into host buffers
-        (pinned on CUDA: the slices' copies read them as they are).  The pass
-        reads int32 C-contiguous views, the decoder's; any other integral
-        view is checked by ``_intify`` and cast to one first."""
+    def _wire_inputs(self, x_aff, x_neg, cov_aff, cov_neg):
+        """What ``wire.pack`` reads: int32 C-contiguous views (``x_neg`` None
+        where the views are one) and int16 coverages; None when a value does
+        not fit in int16."""
         ca16 = self._intify(cov_aff)
         cn16 = ca16 if cov_neg is cov_aff or ca16 is None else self._intify(cov_neg)
         if ca16 is None or cn16 is None:
@@ -291,25 +247,43 @@ class InferenceEngine:
                     return None
                 x = np.ascontiguousarray(x, np.int32)
             views.append(x)
+        return (*views, ca16, cn16)
+
+    def _pack(self, x_aff, x_neg, cov_aff, cov_neg):
+        """A batch as ``(packed, second)``, padded to whole slices in host
+        buffers (pinned on CUDA: the slices' copies read them as they are):
+        ``packed`` (rows, 34, 34), rows 0-32 the AFF counts and row 33
+        columns 0/1 the coverages; ``second`` None when ``x_neg`` is None
+        (the views are one).  When every value fits in int16 both are int16
+        and ``second`` is the NEG - AFF delta (33, 34 a row); otherwise both
+        are float32 and ``second`` is the NEG view.
+
+        The int16 pair comes from one pass of ``ops/wire.py``, which reads
+        int32 C-contiguous views, the decoder's; any other integral view is
+        checked by ``_intify`` and cast to one first."""
         rows = -(-x_aff.shape[0] // self.device_batch) * self.device_batch
         # torch's caching host allocator hands a pinned block out again only
         # once the copies that read it have finished
         pin = self.devices[0].type == "cuda"
-        packed = torch.empty((rows, 34, 34), dtype=torch.int16, pin_memory=pin)
-        delta = (None if x_neg is None else
-                 torch.empty((rows, 33, 34), dtype=torch.int16, pin_memory=pin))
-        tracing.count("engine.wire_fused_batches")
-        if not wire.pack(*views, ca16, cn16, packed, delta):
-            return None
-        return packed, delta
-
-    def _zero_delta_dev(self, replica=0):
-        """Device-resident int16 zero delta for identical AFF/NEG views."""
-        if self._zero_delta[replica] is None:
-            self._zero_delta[replica] = torch.zeros(
-                (self.device_batch // len(self.devices), 33, 34), dtype=torch.int16,
-                device=self.devices[replica])
-        return self._zero_delta[replica]
+        ints = self._wire_inputs(x_aff, x_neg, cov_aff, cov_neg)
+        if ints is not None:
+            packed = torch.empty((rows, 34, 34), dtype=torch.int16, pin_memory=pin)
+            delta = (None if x_neg is None else
+                     torch.empty((rows, 33, 34), dtype=torch.int16, pin_memory=pin))
+            tracing.count("engine.wire_fused_batches")
+            if wire.pack(*ints, packed, delta):
+                return packed, delta
+        n = x_aff.shape[0]
+        packed = torch.zeros((rows, 34, 34), dtype=torch.float32, pin_memory=pin)
+        p = packed.numpy()
+        p[:n, :33] = x_aff
+        p[:n, 33, 0] = cov_aff
+        p[:n, 33, 1] = cov_neg
+        if x_neg is None:
+            return packed, None
+        second = torch.zeros((rows, 33, 34), dtype=torch.float32, pin_memory=pin)
+        second.numpy()[:n] = x_neg
+        return packed, second
 
     def run_batch(self, x_aff, x_neg, cov_aff, cov_neg) -> BatchResult:
         """Synchronous convenience wrapper over ``run_batch_async``."""
@@ -331,13 +305,11 @@ class InferenceEngine:
         n = x_aff.shape[0]
         identity = x_neg is x_aff
         x_aff = np.asarray(x_aff)
-        x_neg = x_aff if identity else np.asarray(x_neg)
+        x_neg = None if identity else np.asarray(x_neg)
         cov_aff = np.asarray(cov_aff)
         cov_neg = cov_aff if cov_neg is cov_aff else np.asarray(cov_neg)
         with tracing.span("engine.pack"):
-            wire_enc = self._pack(x_aff, None if identity else x_neg, cov_aff, cov_neg)
-        use_int = wire_enc is not None
-        packed, d16 = wire_enc if use_int else (None, None)
+            packed, second = self._pack(x_aff, x_neg, cov_aff, cov_neg)
         if self._on_cuda:
             set_matmul_precision(self.matmul_precision)
         handles, h2d_bytes = [], 0
@@ -345,33 +317,20 @@ class InferenceEngine:
             sl = slice(i, i + self.device_batch)
             ni = min(self.device_batch, n - i)
             with tracing.span("engine.upload"):
-                if use_int:
-                    padded = (packed[sl], None if d16 is None else d16[sl])
-                else:
-                    padded = (self._pad(np.asarray(x_aff[sl], np.float32)),
-                              None if identity else self._pad(np.asarray(x_neg[sl], np.float32)),
-                              self._pad(np.asarray(cov_aff[sl], np.float32), value=1),
-                              None if cov_neg is cov_aff
-                              else self._pad(np.asarray(cov_neg[sl], np.float32), value=1))
+                padded = (packed[sl], None if second is None else second[sl])
             # every replica's part is dispatched before any is consumed; each
             # has its own pinned buffer and its own event on its own device
             parts = []
             for k, device in enumerate(self.devices):
                 with _on_device(device):
                     with tracing.span("engine.upload"):
-                        part = [None if a is None else self._put(self._part(a, k), k)
+                        part = [None if a is None else
+                                self._part(a, k).to(device, non_blocking=True)
                                 for a in padded]
                     if device.type == "cuda":
                         h2d_bytes += sum(a.nbytes for a in part if a is not None)
                     with tracing.span("engine.launch"):
-                        if use_int:
-                            pk, xd = part
-                            p1 = self._forward_delta(
-                                pk, self._zero_delta_dev(k) if xd is None else xd, k)
-                        else:
-                            xa, xn, ca, cn = part
-                            p1 = self._forward_full(xa, xa if xn is None else xn,
-                                                    ca, ca if cn is None else cn, k)
+                        p1 = self._forward(*part, k)
                         event = None
                         if device.type == "cuda":
                             host = torch.empty(p1.shape, dtype=p1.dtype, pin_memory=True)
@@ -384,7 +343,7 @@ class InferenceEngine:
         tracing.count("engine.batches")
         tracing.count("engine.rows", n)
         tracing.count("engine.rows_padded", len(handles) * self.device_batch)
-        tracing.count("engine.float_path_batches", int(not use_int))
+        tracing.count("engine.float_path_batches", int(packed.dtype != torch.int16))
         tracing.count("engine.h2d_bytes", h2d_bytes)
         return PendingBatch(self, handles, x_aff, bid)
 
@@ -405,17 +364,6 @@ class InferenceEngine:
                 np.asarray(x_aff_slice)[:, cfg.FLANKING_BASE_NUM, :])
         return BatchResult(p_aff=p_aff, p_neg=p_neg, posterior=posterior,
                            forward_acgt=fwd, reverse_acgt=rev)
-
-    def run_batch_fused(self, x_aff, x_neg, cov_aff, cov_neg):
-        """Posterior, argmax and QUAL on the device; returns device tensors
-        for the padded batch.  Runs on the first replica."""
-        if self._on_cuda:
-            set_matmul_precision(self.matmul_precision)
-        xa = self._put(self._pad(np.asarray(x_aff, np.float32)))
-        xn = self._put(self._pad(np.asarray(x_neg, np.float32)))
-        ca = self._put(self._pad(np.asarray(cov_aff, np.float32), value=1))
-        cn = self._put(self._pad(np.asarray(cov_neg, np.float32), value=1))
-        return self._forward_fused(xa, xn, ca, cn)
 
 
 class PendingBatch:

@@ -17,6 +17,7 @@ from torch import nn
 
 from clairs_to_tpu_torch.models import bigru as bigru_mod
 from clairs_to_tpu_torch.models import cvt as cvt_mod
+from clairs_to_tpu_torch.models import mode_configs
 
 _SEGMENT = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
 
@@ -121,12 +122,8 @@ def load_checkpoint_auto(path, mode="snv", kind="cvt", device="cuda"):
     default flagship config when absent).  Returns (model on ``device`` in
     eval mode, config)."""
     arch = checkpoint_arch(path)
-    if kind == "cvt":
-        config = (_config_from_arch(cvt_mod.CvTConfig, arch) if arch else
-                  cvt_mod.SNV_CVT_CONFIG if mode == "snv" else cvt_mod.INDEL_CVT_CONFIG)
-    else:
-        config = (_config_from_arch(bigru_mod.BiGRUConfig, arch) if arch else
-                  bigru_mod.SNV_BIGRU_CONFIG if mode == "snv"
-                  else bigru_mod.INDEL_BIGRU_CONFIG)
+    cls = cvt_mod.CvTConfig if kind == "cvt" else bigru_mod.BiGRUConfig
+    config = (_config_from_arch(cls, arch) if arch else
+              mode_configs(mode)[0 if kind == "cvt" else 1])
     model = load_checkpoint(path, _model(kind, config))
     return model.to(device).eval(), config

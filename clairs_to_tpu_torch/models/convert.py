@@ -146,7 +146,7 @@ def main(argv=None):
     ``model_acgt`` (aff) / ``model_nacgt`` (neg), or a plain state dict."""
     import torch
 
-    from clairs_to_tpu_torch.models import bigru, cvt
+    from clairs_to_tpu_torch.models import mode_configs
     from clairs_to_tpu_torch.models.checkpoint import save_checkpoint
 
     p = argparse.ArgumentParser(prog="convert_checkpoint", description=main.__doc__)
@@ -163,11 +163,12 @@ def main(argv=None):
     state = module.state_dict() if hasattr(module, "state_dict") else module
     sd = {k: v.detach().cpu().numpy() for k, v in state.items()}
 
+    cvt_config, bigru_config = mode_configs(args.mode)
     if args.kind == "aff":
-        config = cvt.SNV_CVT_CONFIG if args.mode == "snv" else cvt.INDEL_CVT_CONFIG
+        config = cvt_config
         params = cvt_params_from_state_dict(sd, config)
     else:
-        config = bigru.SNV_BIGRU_CONFIG if args.mode == "snv" else bigru.INDEL_BIGRU_CONFIG
+        config = bigru_config
         params = bigru_params_from_state_dict(sd, config)
 
     save_checkpoint(args.output, params, arch=asdict(config))

@@ -35,8 +35,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _S = ctypes.POINTER(ctypes.c_longlong)
 LIB = _native.Library(
     "dwproj.cu", "libdwproj.so",
-    {"dwproj_forward_f32": [_P] * 5 + [_I] * 5 + [_S] * 2 + [_I, _P],
-     "dwproj_backward_f32": [_P] * 9 + [_I] * 5 + [_S] * 3 + [_I] * 4 + [_P]})
+    {"dwproj_forward_f32": (_I, [_P] * 5 + [_I] * 5 + [_S] * 2 + [_I, _P]),
+     "dwproj_backward_f32": (_I, [_P] * 9 + [_I] * 5 + [_S] * 3 + [_I] * 4 + [_P])})
 _count_lock = threading.Lock()
 
 

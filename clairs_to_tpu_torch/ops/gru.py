@@ -33,11 +33,11 @@ KC, GROUP = 16, 64  # csrc/gru.cu: W rows per chunk, hidden units per column gro
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # the forward and the backward; each library's first entry point is its launch
 LIBS = {"gru": _native.Library("gru.cu", "libgru.so",
-                               {"gru_direction_f32": [_P] * 4 + [_I] * 4 + [_P]}),
+                               {"gru_direction_f32": (_I, [_P] * 4 + [_I] * 4 + [_P])}),
         "gru_bwd": _native.Library(
             "gru_bwd.cu", "libgru_bwd.so",
-            {"gru_direction_backward_f32": [_P] * 7 + [_I] * 6 + [_P],
-             "gru_direction_backward_max_clusters": [_I] * 3 + [ctypes.POINTER(_I)]})}
+            {"gru_direction_backward_f32": (_I, [_P] * 7 + [_I] * 6 + [_P]),
+             "gru_direction_backward_max_clusters": (_I, [_I] * 3 + [ctypes.POINTER(_I)])})}
 
 
 def build(names=("gru", "gru_bwd"), verbose=False):

@@ -1,4 +1,4 @@
-# Port copy of clairs_to_tpu/ops/posterior.py (host path); the device path is torch.
+# Port copy of clairs_to_tpu/ops/posterior.py (host path).
 """Dual-network Bayesian posterior — the core of call_variants, vectorized.
 
 Reference math (ClairS-TO clairs/call_variants.py:181-304): for each
@@ -13,11 +13,8 @@ then
 The call is argmax_k posterior_k; SNV mode: variant iff argmax base != ref;
 indel mode: variant iff argmax in {I, D}.
 
-Two implementations:
-  * ``posterior_probs_np`` — float64 NumPy, bit-matching the reference's
-    scalar-Python math (used on the VCF output path);
-  * ``posterior_probs_torch`` — float32 torch on the engine's device, the
-    counterpart of clairs_to_tpu's ``posterior_probs_jnp`` (fused bench path).
+``posterior_probs_np`` is float64 NumPy, bit-matching the reference's
+scalar-Python math; the engine runs it on the host for every batch.
 
 QUAL (call_variants.py:79-88): max(-10*log10((1-p+1e-10)/(p+1e-10)) + 2, 0),
 rounded to 4 decimals.
@@ -28,7 +25,6 @@ from dataclasses import dataclass
 from math import log, e as _e
 
 import numpy as np
-import torch
 
 EPS = sys.float_info.epsilon
 PHRED_TRANS = -10 * log(_e, 10)  # call_variants.py:79
@@ -118,37 +114,3 @@ def quality_score_np(probability):
     p = np.asarray(probability, dtype=np.float64)
     q = np.maximum(PHRED_TRANS * np.log(((1.0 - p) + 1e-10) / (p + 1e-10)) + 2.0, 0.0)
     return np.round(q, 4)
-
-
-def posterior_probs_torch(p_aff, p_neg, matrices, aff_edges, neg_edges):
-    """Float32 posterior on the tensors' device.
-
-    matrices: (n_alleles, 10, 10); *_edges: (n_alleles, 11) — float32
-    tensors.  ``searchsorted(right=True) - 1`` clamped to [0, 9] equals the
-    host path's ``np.digitize - 1``.
-    """
-    p = p_aff.float()
-    q = p_neg.float()
-    one_minus_q = 1.0 - q
-
-    def bin_of(vals, edges):
-        # edges (A, 11) and vals.T (A, B): one batched searchsorted per allele row
-        idx = torch.searchsorted(edges.contiguous(), vals.t().contiguous(),
-                                 right=True) - 1
-        return idx.t().clamp(0, 9)
-
-    ai = bin_of(p, aff_edges)
-    ni = bin_of(one_minus_q, neg_edges)
-    k_idx = torch.arange(p.shape[1], device=p.device)[None, :]
-    w = matrices[k_idx, ai, ni] + EPS
-    num = p * one_minus_q * w
-    den = num + (1.0 - p) * q * (1.0 - w)
-    return num / den
-
-
-def quality_score_torch(probability):
-    """Float32 QUAL on device (no 4-decimal rounding, like the JAX version)."""
-    p = probability.float()
-    return torch.clamp_min(
-        PHRED_TRANS * torch.log(((1.0 - p) + 1e-10) / (p + 1e-10)) + 2.0, 0.0
-    )

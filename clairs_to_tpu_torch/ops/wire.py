@@ -13,7 +13,6 @@ ctypes (``ops/_native.py``).  A failed build raises; there is no fallback.
 """
 
 import ctypes
-import shutil
 
 import numpy as np
 import torch
@@ -24,20 +23,10 @@ VIEW = (33, 34)
 
 _P = ctypes.c_void_p
 
-
-def _command(src, verbose=False):
-    """The host compiler's arguments that build ``src`` (``verbose`` unused)."""
-    for cand in ("c++", "g++"):
-        path = shutil.which(cand)
-        if path:
-            return [path, "-O3", "-std=c++17", "-fopenmp", "-shared", "-fPIC", src]
-    raise RuntimeError("no C++ compiler (c++ or g++) found: the engine's wire "
-                       "routine is built from csrc/wire.cpp")
-
-
 LIB = _native.Library("wire.cpp", "libwire.so",
-                      {"wire_pack_int32": [_P] * 4 + [ctypes.c_int64] * 2 + [_P] * 2
-                       + [ctypes.c_int]}, command=_command)
+                      {"wire_pack_int32": (ctypes.c_int, [_P] * 4 + [ctypes.c_int64] * 2
+                                           + [_P] * 2 + [ctypes.c_int])},
+                      command=_native.host_command("-fopenmp"))
 
 
 def build():

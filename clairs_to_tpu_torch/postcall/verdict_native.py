@@ -7,78 +7,42 @@ FilterIndex arrays — bit-for-bit the same verdicts and Fisher p-values as
 the Python per-site path (cross-validated by tests/test_verdict_native.py),
 with far less per-site overhead.  SNV sites only; indels and the
 --exact_reference_fisher parity mode stay on the Python path.
+``verdict_native.cpp`` is built on first use into
+``build/kernels/libverdict.so`` through ``ops/_native.py``.
 """
 
 import ctypes
 import os
-import subprocess
-import threading
 
 import numpy as np
 
-_DIR = os.path.dirname(os.path.abspath(__file__))
-_SO = os.path.join(_DIR, "libverdict_native.so")
-_SRC = os.path.join(_DIR, "verdict_native.cpp")
+from clairs_to_tpu_torch.ops import _native
 
-_lib = None
-_load_error = None
-_lock = threading.Lock()
+_P, _I64, _I, _D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_double
 
-
-def _build():
-    # -ffp-contract=off: the Fisher log-space accumulation must match
-    # CPython's per-op libm arithmetic (no FMA contraction)
-    # built under a temporary name and renamed: two processes may build at once
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    cmd = [
-        "g++", "-O3", "-std=c++17", "-shared", "-fPIC",
-        "-ffp-contract=off", "-o", tmp, _SRC,
-    ]
-    subprocess.run(cmd, check=True, capture_output=True)
-    os.replace(tmp, _SO)
+# -ffp-contract=off: the Fisher log-space accumulation must match CPython's
+# per-op libm arithmetic (no FMA contraction)
+LIB = _native.Library(
+    os.path.join(os.path.dirname(os.path.abspath(__file__)), "verdict_native.cpp"),
+    "libverdict.so", {
+        "verdict_engine_create": (_P, [_P] * 8 + [_I64] * 2          # table+cols
+                                  + [_P] * 4 + [_I64] * 2            # nr stream
+                                  + [_P] * 2 + [_I64]                # colkey
+                                  + [_P] * 3                         # ins/onlyref
+                                  + [_P] * 2 + [_I64] * 2            # rse
+                                  + [_P] * 2 + [_I64]                # het
+                                  + [_P] * 2 + [_I64]                # hom
+                                  + [_I] * 3 + [_D] * 2),
+        "verdict_engine_free": (None, [_P]),
+        "verdict_engine_run": (None, [_P, _I64] + [_P] * 6),
+        "verdict_fisher_exact": (_D, [_I64] * 4),
+    }, command=_native.host_command("-ffp-contract=off"))
 
 
 def get_lib():
-    # decode workers reach this at the same time: one builds and loads, the
-    # others wait for it
-    with _lock:
-        return _get_lib_locked()
-
-
-def _get_lib_locked():
-    global _lib, _load_error
-    if _lib is not None or _load_error is not None:
-        return _lib
-    try:
-        if not os.path.exists(_SO) or \
-                os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-            _build()
-        lib = ctypes.CDLL(_SO)
-        lib.verdict_engine_create.restype = ctypes.c_void_p
-        lib.verdict_engine_create.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 2          # table+cols
-            + [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2        # nr stream
-            + [ctypes.c_void_p] * 2 + [ctypes.c_int64]            # colkey
-            + [ctypes.c_void_p] * 3                               # ins/onlyref
-            + [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2        # rse
-            + [ctypes.c_void_p] * 2 + [ctypes.c_int64]            # het
-            + [ctypes.c_void_p] * 2 + [ctypes.c_int64]            # hom
-            + [ctypes.c_int] * 3 + [ctypes.c_double] * 2
-        )
-        lib.verdict_engine_free.restype = None
-        lib.verdict_engine_free.argtypes = [ctypes.c_void_p]
-        lib.verdict_engine_run.restype = None
-        lib.verdict_engine_run.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int64]
-            + [ctypes.c_void_p] * 6
-        )
-        lib.verdict_fisher_exact.restype = ctypes.c_double
-        lib.verdict_fisher_exact.argtypes = [ctypes.c_int64] * 4
-        _lib = lib
-    except Exception as e:     # pragma: no cover - build environment issues
-        _load_error = e
-        _lib = None
-    return _lib
+    """The loaded verdict library, or None when it does not build
+    (``LIB.error`` says why): the Python per-site path runs then."""
+    return LIB.load_or_none()
 
 
 def available():

@@ -2,60 +2,32 @@
 """ctypes binding for the native realignment library.
 
 Replaces the reference's ctypes loading of its vendored realigner/dbg .so
-files (src/realign_reads.py:56-83).
+files (src/realign_reads.py:56-83).  ``realign_native.cpp`` is built on
+first use into ``build/kernels/librealign.so`` through ``ops/_native.py``.
 """
 
 import ctypes
 import os
-import subprocess
-import threading
 
 import numpy as np
 
-_DIR = os.path.dirname(os.path.abspath(__file__))
-_SO = os.path.join(_DIR, "librealign_native.so")
-_SRC = os.path.join(_DIR, "realign_native.cpp")
+from clairs_to_tpu_torch.ops import _native
 
-_lib = None
-_load_error = None
-_lock = threading.Lock()
+LIB = _native.Library(
+    os.path.join(os.path.dirname(os.path.abspath(__file__)), "realign_native.cpp"),
+    "librealign.so", {
+        "dbg_consensus": (ctypes.c_void_p, [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int]),
+        "realign_free": (None, [ctypes.c_void_p]),
+        "realign_reads": (ctypes.c_void_p, [ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p,
+                                            ctypes.c_char_p, ctypes.c_void_p,
+                                            ctypes.POINTER(ctypes.c_int)]),
+    }, command=_native.host_command())
 
 
 def get_lib():
-    # decode workers reach this at the same time: one builds and loads, the
-    # others wait for it
-    with _lock:
-        return _get_lib_locked()
-
-
-def _get_lib_locked():
-    global _lib, _load_error
-    if _lib is not None or _load_error is not None:
-        return _lib
-    try:
-        if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-            # built under a temporary name and renamed: two processes may
-            # build at once
-            tmp = f"{_SO}.{os.getpid()}.tmp"
-            subprocess.run(
-                ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-o", tmp, _SRC],
-                check=True, capture_output=True,
-            )
-            os.replace(tmp, _SO)
-        lib = ctypes.CDLL(_SO)
-        lib.dbg_consensus.restype = ctypes.c_void_p
-        lib.dbg_consensus.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int]
-        lib.realign_free.restype = None
-        lib.realign_free.argtypes = [ctypes.c_void_p]
-        lib.realign_reads.restype = ctypes.c_void_p
-        lib.realign_reads.argtypes = [
-            ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_char_p,
-            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
-        ]
-        _lib = lib
-    except Exception as e:  # pragma: no cover
-        _load_error = e
-    return _lib
+    """The loaded realignment library, or None when it does not build
+    (``LIB.error`` says why): no read is realigned then."""
+    return LIB.load_or_none()
 
 
 def available() -> bool:

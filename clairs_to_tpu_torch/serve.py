@@ -69,20 +69,14 @@ class CallService:
     def get_engines(self, args):
         """Load or reuse the engines of this request; returns
         ((snv, indel), cached).  Call with the lock held."""
-        import numpy as np
-
-        from clairs_to_tpu_torch.cli.run import load_engines, run_devices
+        from clairs_to_tpu_torch.cli.run import load_engines, run_devices, warm_engines
 
         key = engine_key(args)
         hit = self.engines.get(key)
         if hit is not None:
             return hit, True
         engines = load_engines(args, devices=run_devices(args))
-        for eng in engines:
-            if eng is not None:   # the first forward builds the kernel and cuDNN's plans
-                z = np.zeros((1, 33, 34), np.int16)
-                c = np.ones((1,), np.float32)
-                eng.run_batch(z, z, c, c)
+        warm_engines(engines)
         self.engines[key] = engines
         return engines, False
 

@@ -44,7 +44,7 @@ import torch
 
 from clairs_to_tpu_torch import config as cfg
 from clairs_to_tpu_torch.infer.engine import resolve_device, set_matmul_precision
-from clairs_to_tpu_torch.models import bigru, cvt
+from clairs_to_tpu_torch.models import bigru, cvt, mode_configs
 from clairs_to_tpu_torch.models.checkpoint import (  # noqa: F401  (the JAX module's API)
     checkpoint_arch,
     load_checkpoint,
@@ -142,10 +142,9 @@ class DualTrainer:
                  bigru_config=None, device="cuda"):
         self.tc = tc or TrainConfig()
         self.device = resolve_device(device)
-        self.cvt_config = cvt_config or (
-            cvt.SNV_CVT_CONFIG if mode == "snv" else cvt.INDEL_CVT_CONFIG)
-        self.bigru_config = bigru_config or (
-            bigru.SNV_BIGRU_CONFIG if mode == "snv" else bigru.INDEL_BIGRU_CONFIG)
+        default_cvt, default_bigru = mode_configs(mode)
+        self.cvt_config = cvt_config or default_cvt
+        self.bigru_config = bigru_config or default_bigru
         gen = torch.Generator().manual_seed(self.tc.seed)
         self.models = {
             "aff": cvt.CvT(self.cvt_config).reset_parameters(gen).to(self.device),

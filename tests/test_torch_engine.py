@@ -118,6 +118,41 @@ def test_int16_and_float32_paths_agree(engines):
     np.testing.assert_allclose(b.p_neg, a.p_neg, rtol=1e-6, atol=1e-7)
 
 
+def _float_case(case, seed):
+    """Batches that leave the int16 wire: a coverage of 32,768 or more with
+    two views, non-integral counts in one view, a count of 32,768 or more in
+    one view."""
+    x, cov = _batch(40, seed=seed, integral=case != "one_view_fractional")
+    if case == "dual_deep_coverage":
+        cov[[3, 17]] = [32768.0, 40000.0]
+        xn = x + np.random.default_rng(seed).integers(-3, 4, size=x.shape)
+        return x, xn, cov, cov + 7
+    if case == "one_view_large_count":
+        x[[2, 30], 16, 5] = [32768.0, 50000.0]
+    return x, x, cov, cov
+
+
+@pytest.mark.parametrize("case", ["dual_deep_coverage", "one_view_fractional",
+                                  "one_view_large_count"])
+def test_float32_layout_matches_jax(engines, case):
+    """What does not fit in int16 goes in the float32 layout (the same rows,
+    NEG as a full view) and gives the JAX engine's answers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from clairs_to_tpu_torch.utils import metrics as tracing
+
+    je, te = engines
+    args = _float_case(case, 31)
+    packed, second = te._pack(args[0], None if args[1] is args[0] else args[1], *args[2:])
+    assert packed.dtype == torch.float32 and (second is None) == (args[1] is args[0])
+    before = tracing.RECORDER.counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = te.run_batch(*args)
+    after = tracing.RECORDER.counters()
+    assert after["engine.float_path_batches"] - before.get("engine.float_path_batches", 0) == 1
+    _same(je.run_batch(*args), got)
+
+
 # ---- the one-pass wire routine (ops/wire.py) -------------------------------
 
 def _views(n, seed):
@@ -204,6 +239,13 @@ def test_a_delta_out_of_int16_takes_the_float_path(engines):
         assert not wire.pack(xa, None, c16, c16, out[0], None), a
     xa[5, 3, 4], xn[5, 3, 4] = -16384, 16384
     assert not wire.pack(xa, xn, c16, c16, *out)       # 32768 does not
+    packed, second = te._pack(xa, xn, cov, cov)        # so the batch goes as float32
+    assert packed.dtype == second.dtype == torch.float32
+    assert packed.shape == (64, 34, 34) and second.shape == (64, 33, 34)
+    np.testing.assert_array_equal(packed[:12, :33].numpy(), xa)
+    np.testing.assert_array_equal(packed[:12, 33, :2].numpy(), np.stack([cov, cov], 1))
+    np.testing.assert_array_equal(second[:12].numpy(), xn)
+    assert not packed[12:].any() and not second[12:].any()
     before = tracing.RECORDER.counters()
     with profile(activities=[ProfilerActivity.CPU]):
         got = te.run_batch(xa, xn, cov, cov)
@@ -245,7 +287,10 @@ def test_other_dtypes_and_layouts_go_through_the_routine_as_int32(engines, monke
     big = xa.astype(np.int64)
     big[3, 2, 1] += 2 ** 32                          # int32 would read it as in range
     seen.clear()
-    assert te._pack(big, xn, cov, cov) is None and not seen
+    packed, second = te._pack(big, xn, cov, cov)
+    assert not seen and packed.dtype == second.dtype == torch.float32
+    assert packed[3, 2, 1] == float(big[3, 2, 1]) and torch.equal(second[:30],
+                                                                  torch.from_numpy(xn).float())
     z = np.zeros((1, 33, 34), np.int16)              # the warm-ups' batch
     packed, delta = te._pack(z, z, np.ones(1, np.float32), np.ones(1, np.float32))
     assert len(seen) == 1 and not delta.numpy().any()
@@ -276,16 +321,6 @@ def test_a_failed_wire_build_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="failed on wire.cpp"):
         wire.build()
     assert wire.LIB.fns is None
-
-
-def test_fused_matches_jax(engines):
-    je, te = engines
-    x, cov = _batch(20, seed=6)
-    pj, bj, qj = (np.asarray(v)[:20] for v in je.run_batch_fused(x, x, cov, cov))
-    pt, bt, qt = (v.numpy()[:20] for v in te.run_batch_fused(x, x, cov, cov))
-    np.testing.assert_allclose(pt, pj, rtol=1e-5, atol=1e-5)
-    np.testing.assert_array_equal(bt, bj)
-    np.testing.assert_allclose(qt, qj, rtol=1e-4, atol=1e-3)
 
 
 def test_recover_strand_counts_matches_jax():
@@ -393,7 +428,7 @@ def test_tf32_switches_follow_the_dispatching_engine(engines, monkeypatch):
         for eng, want in ((exact, False), (fast, True), (exact, False)):
             eng.run_batch(x, x, cov, cov)
             assert switches() == (want, want)
-        fast.run_batch_fused(x, x, cov, cov)
+        fast.run_batch(x, x, cov, cov)
         assert switches() == (True, True)
         set_matmul_precision("highest")
         assert switches() == (False, False)

@@ -35,15 +35,75 @@ def _both(name):
     return tuple(_mod(p, name) for p in PKGS)
 
 
-def test_native_libraries_build_and_load():
-    from clairs_to_tpu_torch import realign
-    from clairs_to_tpu_torch.bamio import native
-    from clairs_to_tpu_torch.postcall import verdict_native
+HOST_LIBS = ("bamio.native", "postcall.verdict_native", "realign")
 
-    assert native.available() and verdict_native.available() and realign.available()
-    # each loads the library that lies beside its own source, not the other package's
-    for mod in (realign, verdict_native):
-        assert os.path.dirname(mod._SO) == os.path.dirname(os.path.abspath(mod.__file__))
+
+def test_native_libraries_build_and_load():
+    from clairs_to_tpu_torch.ops import _native
+
+    mods = [_mod("clairs_to_tpu_torch", name) for name in HOST_LIBS]
+    assert all(mod.available() for mod in mods)
+    for name, mod in zip(HOST_LIBS, mods):
+        # built from the source beside the module into build/kernels/, under a
+        # name of its own: not the JAX package's library, which lies beside its source
+        lib, jax_mod = mod.LIB, _mod("clairs_to_tpu", name)
+        assert os.path.dirname(lib.so) == _native.BUILD_DIR and os.path.exists(lib.so)
+        assert os.path.dirname(lib.source) == os.path.dirname(os.path.abspath(mod.__file__))
+        assert os.path.basename(lib.so) != os.path.basename(jax_mod._SO)
+        assert not os.path.samefile(lib.so, jax_mod._SO)
+        assert lib.error is None and mod.get_lib() is lib.cdll
+
+
+def _fallback_answer(name, request):
+    """What the callers of library ``name`` get, on whichever path runs."""
+    if name == "bamio.native":
+        native = _mod("clairs_to_tpu_torch", name)
+        pos = np.random.default_rng(3).integers(0, 50, size=400)
+        return {p: list(ix) for p, ix in native.group_entries_at(pos, np.arange(0, 60, 3)).items()}
+    if name == "realign":
+        realign = _mod("clairs_to_tpu_torch", name)
+        ref = "ACGTTGCA" * 20
+        haps = realign.get_consensus(ref, [ref[s:s + 40] for s in range(0, 100, 10)])
+        pos, cigars = realign.realign_reads(ref, 500, [ref[10:50], ref[60:100]], haps)
+        return haps, pos.tolist(), cigars
+    ds = request.getfixturevalue("ilmn_ds")
+    pe, L, aff_bq = _load("clairs_to_tpu_torch", ds, "ilmn", "table")
+    sites, _h, _o = _inventory(pe, L, aff_bq)
+    hf = _mod("clairs_to_tpu_torch", "postcall.hardfilter")
+    batch = hf.HardFilterEngine(pe, site_positions=[s[0] for s in sites]).verdict_batch(
+        [s[:3] for s in sites])
+    return batch
+
+
+@pytest.mark.parametrize("name", HOST_LIBS)
+def test_a_host_library_that_does_not_compile_falls_back(name, request, tmp_path,
+                                                          monkeypatch):
+    """A C++ source that does not compile leaves ``available()`` false and the
+    compiler's message in ``LIB.error``; the callers' numpy or Python path
+    answers instead, as the library would (the realigner's fallback
+    realigns nothing)."""
+    mod = _mod("clairs_to_tpu_torch", name)
+    assert mod.available()
+    native_answer = _fallback_answer(name, request)
+    broken = tmp_path / os.path.basename(mod.LIB.source)
+    broken.write_text("this is not C++\n")
+    for attr, value in (("source", str(broken)), ("so", str(tmp_path / "lib.so")),
+                        ("cdll", None), ("fns", None), ("error", None)):
+        monkeypatch.setattr(mod.LIB, attr, value)
+    assert not mod.available() and mod.get_lib() is None
+    assert f"failed on {broken.name}" in str(mod.LIB.error)
+    assert "error" in str(mod.LIB.error)                    # the compiler's own message
+    answer = _fallback_answer(name, request)
+    if name == "realign":
+        ref = "ACGTTGCA" * 20
+        assert answer == ([ref], [-1, -1], ["", ""])
+    elif name == "bamio.native":
+        assert answer == native_answer
+    else:
+        _assert_same_verdicts(native_answer, answer, (
+            "pass_read_start_end", "pass_co_exist", "pass_strand_bias",
+            "pass_sequence_entropy"))
+    assert os.listdir(tmp_path) == [broken.name]            # no library, no temporary file
 
 
 def test_failed_jax_library_load_is_rebuilt(tmp_path, monkeypatch):

@@ -168,7 +168,7 @@ def test_coordinator_without_rank_is_an_error(dense, tmp_path):
                                                         "--coordinator_address", "127.0.0.1:9"])
 
 
-@pytest.mark.parametrize("name", ["bamio.native", "postcall.verdict_native"])
+@pytest.mark.parametrize("name", ["bamio.native", "postcall.verdict_native", "realign"])
 def test_cold_library_is_built_once_by_concurrent_threads(name, tmp_path, monkeypatch):
     """A run's decode workers all reach the loader at once, and with no
     library built yet (a fresh checkout, or a rank of a multi-process run)
@@ -177,17 +177,21 @@ def test_cold_library_is_built_once_by_concurrent_threads(name, tmp_path, monkey
     import importlib
     import threading
 
+    from clairs_to_tpu_torch.ops import _native
+
     mod = importlib.import_module(f"clairs_to_tpu_torch.{name}")
-    builds, real_build = [], mod._build
+    lib = mod.LIB
+    builds, real_start = [], _native.start_compile
 
-    def counting_build():
-        builds.append(threading.get_ident())
-        real_build()
+    def counting_start(argv, so):
+        if so == lib.so:
+            builds.append(threading.get_ident())
+        return real_start(argv, so)
 
-    monkeypatch.setattr(mod, "_SO", str(tmp_path / os.path.basename(mod._SO)))
-    monkeypatch.setattr(mod, "_lib", None)
-    monkeypatch.setattr(mod, "_load_error", None)
-    monkeypatch.setattr(mod, "_build", counting_build)
+    monkeypatch.setattr(lib, "so", str(tmp_path / os.path.basename(lib.so)))
+    for attr in ("cdll", "fns", "error"):
+        monkeypatch.setattr(lib, attr, None)
+    monkeypatch.setattr(_native, "start_compile", counting_start)
     got = []
     threads = [threading.Thread(target=lambda: got.append(mod.get_lib())) for _ in range(6)]
     for t in threads:
@@ -196,8 +200,8 @@ def test_cold_library_is_built_once_by_concurrent_threads(name, tmp_path, monkey
         t.join(timeout=180)
         assert not t.is_alive()
     assert len(builds) == 1 and len(got) == 6
-    assert all(lib is not None and lib is got[0] for lib in got), mod._load_error
-    assert os.listdir(tmp_path) == [os.path.basename(mod._SO)]    # no temporary file left
+    assert all(cdll is not None and cdll is got[0] for cdll in got), lib.error
+    assert os.listdir(tmp_path) == [os.path.basename(lib.so)]    # no temporary file left
 
 
 def test_fasta_fetch_from_many_threads(dense):

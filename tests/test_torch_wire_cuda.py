@@ -62,14 +62,14 @@ def test_a_full_batch_reaches_the_card_as_numpy_encodes_it(engine, monkeypatch):
     xa, xn, cov = _views(ROWS, 0)
     engine.run_batch(xa, xn, cov, cov)           # builds the routine and the kernel
     sent = []
-    forward = engine._forward_delta
+    forward = engine._forward
 
-    def keep(packed, x_delta, replica=0):
-        p1 = forward(packed, x_delta, replica)
-        sent.append((packed.clone(), x_delta.clone(), p1.clone()))
+    def keep(packed, second, replica=0):
+        p1 = forward(packed, second, replica)
+        sent.append((packed.clone(), second.clone(), p1.clone()))
         return p1
 
-    monkeypatch.setattr(engine, "_forward_delta", keep)
+    monkeypatch.setattr(engine, "_forward", keep)
     before = tracing.RECORDER.counters()
     with profile(activities=[ProfilerActivity.CUDA]):
         engine.run_batch(xa, xn, cov, cov + 2)
