@@ -20,6 +20,22 @@ The BatchNorm reads its running statistics in training too: the JAX
 package trains them as parameters (train.py optimizes the whole tree), so
 they are never batch statistics.
 
+The trunk holds its activations as channels-last tokens: (B, W, C) tensors,
+one row of C channels a position of the one-row image, from the input
+(which is already that layout) to the flatten.  On an image one row high
+every convolution of the trunk but the depthwise one is a matrix product
+over the tokens, so each is one GEMM, forward and both gradients, with its
+bias: the 1x1 convolutions (each projection's pointwise conv, the
+attention's output conv, both feedforward convs) over the B*W tokens
+(``conv1x1``), and the stage embeds, 3x3 with stride 2, over the tokens'
+3-wide windows, since only the kernel's middle row meets the image
+(``embed``).  ``dwproj`` takes the tokens' NCHW image (``image``: the same
+memory, channels-last strides) and returns one in the same format, which
+``tokens`` views back.  The weights keep their convolution layouts,
+(O, C, 1, 1) and (O, C, 3, 3), which the GEMMs read as (O, C) and as the
+middle row's (O, 3C), so the ``state_dict`` and the checkpoints are as the
+JAX package's.
+
 Attention is plain torch (matmul + softmax): the JAX package computes it
 outside any Pallas kernel too.
 """
@@ -81,11 +97,42 @@ def fc_dropout(t, rate, generator):
     return torch.where(mask, t / keep, torch.zeros_like(t))
 
 
-def channel_layernorm(x, g, b, eps=1e-5):
-    """Normalise over the channel dim; eps is added to the std."""
-    mean = x.mean(dim=1, keepdim=True)
-    var = ((x - mean) ** 2).mean(dim=1, keepdim=True)
-    return (x - mean) / (torch.sqrt(var) + eps) * g + b
+def image(t):
+    """(B, W, C) tokens as the NCHW image (B, C, 1, W) over the same memory:
+    channels-last strides when ``t`` is contiguous."""
+    return t.transpose(1, 2).unsqueeze(2)
+
+
+def tokens(x):
+    """A (B, C, 1, W) image as (B, W, C) tokens over the same memory:
+    contiguous when ``x`` is channels-last."""
+    return x.squeeze(2).transpose(1, 2)
+
+
+def conv1x1(t, weight, bias=None):
+    """A 1x1 convolution of (B, W, C) tokens: one GEMM over the B*W tokens,
+    ``weight`` (O, C, 1, 1) read as (O, C), ``bias`` (O,) or None.  Returns
+    (B, W, O) tokens."""
+    return F.linear(t, weight.flatten(1), bias)
+
+
+def embed(t, weight, bias, stride):
+    """A stage embed of (B, W, C) tokens: the k x k convolution with stride
+    ``stride`` and padding k // 2 of their one-row image, as one GEMM over
+    the tokens' k-wide windows, since only the kernel's middle row meets
+    the image.  ``weight`` (O, C, k, k), ``bias`` (O,).  Returns (B, W', O)
+    tokens, W' = ceil(W / stride)."""
+    k = weight.shape[-1]
+    windows = F.pad(t, (0, 0, k // 2, k // 2)).unfold(1, k, stride)   # (B, W', C, k)
+    return F.linear(windows.flatten(2), weight[:, :, k // 2].flatten(1), bias)
+
+
+def channel_layernorm(t, g, b, eps=1e-5):
+    """Normalise (B, W, C) tokens over their channels; eps is added to the
+    std.  ``g``, ``b``: the (1, C, 1, 1) parameters."""
+    mean = t.mean(dim=-1, keepdim=True)
+    var = ((t - mean) ** 2).mean(dim=-1, keepdim=True)
+    return (t - mean) / (torch.sqrt(var) + eps) * g.flatten() + b.flatten()
 
 
 class Linear(nn.Module):
@@ -121,9 +168,10 @@ class BatchNorm(nn.Module):
 
 
 class DepthwiseProj(nn.Module):
-    """Depthwise conv (stride (1, s), padding 1) -> BN -> 1x1 conv.  The
-    first two are one ``ops/dwproj.py::dwproj`` (a kernel pair on CUDA):
-    with H=1 only the 3x3 kernel's middle row meets data."""
+    """Depthwise conv (stride (1, s), padding 1) -> BN -> 1x1 conv, tokens
+    in and out.  The first two are one ``ops/dwproj.py::dwproj`` (a kernel
+    pair on CUDA) on the tokens' image: with H=1 only the 3x3 kernel's
+    middle row meets data.  The third is ``conv1x1``."""
 
     def __init__(self, dim_in, dim_out, k, stride):
         super().__init__()
@@ -132,9 +180,9 @@ class DepthwiseProj(nn.Module):
         self.bn = BatchNorm(dim_in)
         self.pw_weight = _param(dim_out, dim_in, 1, 1)
 
-    def forward(self, x):
-        out = dwproj(x, self.dw_weight, *self.bn.scale_shift(), self.stride)
-        return F.conv2d(out, self.pw_weight)
+    def forward(self, t):
+        out = dwproj(image(t), self.dw_weight, *self.bn.scale_shift(), self.stride)
+        return conv1x1(tokens(out), self.pw_weight)
 
 
 class Attention(nn.Module):
@@ -147,26 +195,22 @@ class Attention(nn.Module):
         self.out_weight = _param(dim, inner, 1, 1)
         self.out_bias = _param(dim)
 
-    def forward(self, x):
-        b, _, h, w = x.shape
+    def forward(self, t):
+        b, n, _ = t.shape
         heads, dh = self.heads, self.dim_head
         inner = heads * dh
-        q = self.to_q(x)
-        kv = self.to_kv(x)
-        k, v = kv[:, :inner], kv[:, inner:]
+        kv = self.to_kv(t)
 
-        def tokens(t):
-            # (b, heads*dh, H, W) -> (b, heads, H*W, dh)
-            bb, _, hh, ww = t.shape
-            return t.reshape(bb, heads, dh, hh * ww).transpose(2, 3)
+        def split(u):
+            # (b, m, heads*dh) -> (b, heads, m, dh)
+            return u.unflatten(-1, (heads, dh)).transpose(1, 2)
 
-        q, k, v = tokens(q), tokens(k), tokens(v)
+        q, k, v = split(self.to_q(t)), split(kv[..., :inner]), split(kv[..., inner:])
         dots = torch.matmul(q, k.transpose(2, 3)) * (dh ** -0.5)
         attn = torch.softmax(dots, dim=-1)
-        out = torch.matmul(attn, v)
-        # (b, heads, n, dh) -> (b, heads*dh, H, W)
-        out = out.transpose(2, 3).reshape(b, inner, h, w)
-        return F.conv2d(out, self.out_weight, self.out_bias)
+        # (b, heads, n, dh) -> (b, n, heads*dh)
+        out = torch.matmul(attn, v).transpose(1, 2).reshape(b, n, inner)
+        return conv1x1(out, self.out_weight, self.out_bias)
 
 
 class FeedForward(nn.Module):
@@ -177,9 +221,9 @@ class FeedForward(nn.Module):
         self.w2 = _param(dim, dim * mult, 1, 1)
         self.b2 = _param(dim)
 
-    def forward(self, x):
-        out = F.gelu(F.conv2d(x, self.w1, self.b1), approximate="none")
-        return F.conv2d(out, self.w2, self.b2)
+    def forward(self, t):
+        out = F.gelu(conv1x1(t, self.w1, self.b1), approximate="none")
+        return conv1x1(out, self.w2, self.b2)
 
 
 class Block(nn.Module):
@@ -193,29 +237,28 @@ class Block(nn.Module):
         self.ff_ln_b = _param(1, dim, 1, 1)
         self.ff = FeedForward(dim, config.mlp_mult)
 
-    def forward(self, x):
-        x = self.attn(channel_layernorm(x, self.attn_ln_g, self.attn_ln_b)) + x
-        return self.ff(channel_layernorm(x, self.ff_ln_g, self.ff_ln_b)) + x
+    def forward(self, t):
+        t = self.attn(channel_layernorm(t, self.attn_ln_g, self.attn_ln_b)) + t
+        return self.ff(channel_layernorm(t, self.ff_ln_g, self.ff_ln_b)) + t
 
 
 class Stage(nn.Module):
     def __init__(self, dim_in, dim, config: CvTConfig, heads, depth):
         super().__init__()
         k = config.emb_kernel
-        self.stride, self.pad = config.emb_stride, k // 2
+        self.stride = config.emb_stride
         self.emb_weight = _param(dim, dim_in, k, k)
         self.emb_bias = _param(dim)
         self.ln_g = _param(1, dim, 1, 1)
         self.ln_b = _param(1, dim, 1, 1)
         self.blocks = nn.ModuleList(Block(dim, config, heads) for _ in range(depth))
 
-    def forward(self, x):
-        x = F.conv2d(x, self.emb_weight, self.emb_bias,
-                     stride=(self.stride, self.stride), padding=(self.pad, self.pad))
-        x = channel_layernorm(x, self.ln_g, self.ln_b)
+    def forward(self, t):
+        t = channel_layernorm(embed(t, self.emb_weight, self.emb_bias, self.stride),
+                              self.ln_g, self.ln_b)
         for blk in self.blocks:
-            x = blk(x)
-        return x
+            t = blk(t)
+        return t
 
 
 class Head(nn.Module):
@@ -263,10 +306,10 @@ class CvT(nn.Module):
     def forward(self, x, dropout_rate=0.0, generator=None):
         """``dropout_rate``/``generator``: training-time fc dropout; the
         inference forward leaves them at 0/None."""
-        x = x.transpose(1, 2).unsqueeze(2)   # (B, W, C) -> NCHW with H=1
-        for stage in self.stages:
+        for stage in self.stages:   # (B, W, C) tokens from the input on
             x = stage(x)
-        return heads_forward(self, x.reshape(x.shape[0], -1), dropout_rate, generator)
+        flat = x.transpose(1, 2).reshape(x.shape[0], -1)   # NCHW row-major
+        return heads_forward(self, flat, dropout_rate, generator)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):

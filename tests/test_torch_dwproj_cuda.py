@@ -9,7 +9,9 @@ the input's memory format; two backward runs equal bit for bit; the pair
 captured in a CUDA graph and replayed on new inputs equals the eager pair;
 misuse (float64, an image two rows high, a non-contiguous weight, a wrong
 gradient) raises; and ``.launches`` moves on the training step's path (the
-capture of a graphed step) and the engine's.
+capture of a graphed step) and the engine's.  Beside them, the CvT around
+the pair: a training step runs no cuDNN ``wgrad_alg0_engine`` kernel, and
+an engine batch launches no more kernels than the count written down.
 
 Marked ``cuda``; each test skips where there is no GPU.  Run them on a
 machine with an H100 with
@@ -27,6 +29,9 @@ from clairs_to_tpu_torch.ops import dwproj as D
 pytestmark = pytest.mark.cuda
 TOL = 1e-5
 SHAPES = [(16, 17), (32, 17), (64, 9), (128, 5)]   # flagship SNV and indel projections
+# kernels of one SNV engine batch of 8,192 rows with the CvT's 1x1
+# convolutions and stage embeds as F.conv2d (H100, torch 2.11)
+ENGINE_KERNELS_CONV = 856
 
 
 @pytest.fixture(autouse=True)
@@ -158,3 +163,55 @@ def test_launches_move_on_the_training_and_engine_paths():
     before = D.dwproj.launches
     engine.run_batch(counts, counts, cov, cov)
     assert D.dwproj.launches - before == projections
+
+
+def _kernels(fn):
+    """Names of the kernels ``fn`` runs on the card, once warmed up (memset
+    and copy operations left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+
+
+def _train_batch(rows, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 40, size=(rows, 33, 34)).astype(np.float32)
+    som = rng.integers(-1, 4, size=rows)
+    aff = np.stack([som == k for k in range(4)], axis=1).astype(np.int64)
+    return [torch.from_numpy(a).cuda() for a in (x, x + 1, aff, 1 - aff)]
+
+
+def test_a_training_step_takes_no_wgrad_alg0_engine():
+    """The CvT's convolutions but the depthwise one are GEMMs over its
+    tokens: an eager SNV step at 800 rows (a training batch) runs no cuDNN
+    ``wgrad_alg0_engine`` kernel, in either layout's variant."""
+    from clairs_to_tpu_torch.train import DualTrainer, TrainConfig
+
+    trainer = DualTrainer("snv", TrainConfig(dropout_rate=0.3), device="cuda")
+    batch, gen = _train_batch(800, 0), torch.Generator(device="cuda").manual_seed(1)
+    names = _kernels(lambda: trainer._eager_step(*batch, generator=gen))
+    assert not [n for n in names if "wgrad_alg0_engine" in n]
+
+
+def test_an_engine_forward_launches_no_more_kernels():
+    """One SNV engine batch of 8,192 rows launches no more kernels than
+    ``ENGINE_KERNELS_CONV``; with the CvT's GEMMs it launched 822 there."""
+    from clairs_to_tpu_torch.infer.engine import InferenceEngine
+    from clairs_to_tpu_torch.ops import posterior as post
+
+    gen0 = torch.Generator().manual_seed(0)
+    engine = InferenceEngine(cvt.CvT(cvt.SNV_CVT_CONFIG).reset_parameters(gen0),
+                             bigru.BiGRU(bigru.SNV_BIGRU_CONFIG).reset_parameters(gen0),
+                             post.uniform_likelihood_data(4), device_batch=8192, device="cuda")
+    rng = np.random.default_rng(0)
+    counts = rng.integers(0, 40, size=(8192, 33, 34)).astype(np.int32)
+    cov = np.full(8192, 30, np.float32)
+    names = _kernels(lambda: engine.run_batch(counts, counts + 1, cov, cov))
+    assert len(names) <= ENGINE_KERNELS_CONV, len(names)

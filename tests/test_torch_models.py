@@ -1,6 +1,7 @@
 """The port's CvT and BiGRU (clairs_to_tpu_torch/models) against the JAX
 package's, and the checkpoint layout carried across."""
 
+import hashlib
 import os
 
 import numpy as np
@@ -8,6 +9,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch.nn.functional as F
 
 from clairs_to_tpu.models import bigru as jbigru
 from clairs_to_tpu.models import cvt as jcvt
@@ -76,6 +78,115 @@ def test_cvt_matches_jax_tiny(mode):
         got = model(torch.from_numpy(x)).numpy()
     assert got.shape == (6, len(tc.alleles), 2)
     np.testing.assert_allclose(got, want, **TOL)
+
+
+# the 1x1 convolutions of a stage-3 block of the flagship SNV CvT: the
+# module path of the weight and of its bias (None where the site has none)
+CONV1X1_SITES = {
+    "to_q": ("attn.to_q.pw_weight", None),
+    "to_kv": ("attn.to_kv.pw_weight", None),
+    "out": ("attn.out_weight", "attn.out_bias"),
+    "w1": ("ff.w1", "ff.b1"),
+    "w2": ("ff.w2", "ff.b2"),
+}
+
+
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("site", sorted(CONV1X1_SITES))
+def test_conv1x1_is_the_1x1_convolution(site, with_bias, channels_last):
+    """``conv1x1`` on the tokens of an image equals ``F.conv2d`` with the
+    1x1 weight on the image: the output, the input's gradient and the
+    weight's and bias's gradients, to fp32 round-off; the weight's
+    gradient lands in the (O, C, 1, 1) leaf."""
+    block = tcvt.CvT(tcvt.SNV_CVT_CONFIG).reset_parameters(
+        torch.Generator().manual_seed(0)).stages[2].blocks[0]
+    w_name, b_name = CONV1X1_SITES[site]
+    weight = block.get_parameter(w_name).detach()
+    out_c, in_c = weight.shape[:2]
+    assert weight.shape[2:] == (1, 1)
+    g = torch.Generator().manual_seed(len(site) + 2 * with_bias + 4 * channels_last)
+    bias = None
+    if with_bias:
+        bias = (block.get_parameter(b_name).detach() if b_name else torch.zeros(out_c))
+        bias = bias + torch.randn(out_c, generator=g)
+    x = torch.randn(6, in_c, 1, 5, generator=g)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    up = torch.randn(6, out_c, 1, 5, generator=g)
+
+    def run(form):
+        leaves = [t.clone().requires_grad_(True) for t in (x, weight)]
+        if bias is not None:
+            leaves.append(bias.clone().requires_grad_(True))
+        b = leaves[2] if bias is not None else None
+        if form == "conv":
+            y = tcvt.tokens(F.conv2d(leaves[0], leaves[1], b))
+        else:
+            y = tcvt.conv1x1(tcvt.tokens(leaves[0]), leaves[1], b)
+        (y * tcvt.tokens(up)).sum().backward()
+        return [y.detach()] + [t.grad for t in leaves]
+
+    want, got = run("conv"), run("gemm")
+    assert got[2].shape == weight.shape
+    for name, u, v in zip(("output", "input", "weight", "bias"), got, want):
+        err = float((u - v).abs().max())
+        assert err <= 1e-5 * float(v.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("mode,stage", [("snv", 0), ("snv", 1), ("snv", 2), ("indel", 0),
+                                        ("indel", 1)])
+def test_embed_is_the_stage_convolution(mode, stage):
+    """A stage embed as one GEMM over the tokens' 3-wide windows equals
+    ``F.conv2d`` (3x3, stride 2, padding 1) on their one-row image: the
+    output, the input's gradient, the whole 3x3 weight's gradient (its
+    outer rows exactly 0, as the convolution gives them) and the bias's."""
+    config = tcvt.SNV_CVT_CONFIG if mode == "snv" else tcvt.INDEL_CVT_CONFIG
+    dims = (config.in_channels,) + config.emb_dims
+    width = config.width
+    for _ in range(stage):
+        width = (width - 1) // 2 + 1
+    g = torch.Generator().manual_seed(10 * stage + len(mode))
+    x = torch.randn(6, width, dims[stage], generator=g)
+    weight = torch.randn(dims[stage + 1], dims[stage], 3, 3, generator=g) * 0.2
+    bias = torch.randn(dims[stage + 1], generator=g)
+    up = torch.randn(6, (width - 1) // 2 + 1, dims[stage + 1], generator=g)
+
+    def run(form):
+        leaves = [t.clone().requires_grad_(True) for t in (x, weight, bias)]
+        if form == "conv":
+            y = tcvt.tokens(F.conv2d(tcvt.image(leaves[0]), leaves[1], leaves[2],
+                                     stride=(2, 2), padding=(1, 1)))
+        else:
+            y = tcvt.embed(*leaves, config.emb_stride)
+        (y * up).sum().backward()
+        return [y.detach()] + [t.grad for t in leaves]
+
+    want, got = run("conv"), run("gemm")
+    assert got[0].shape == want[0].shape == up.shape
+    for name, u, v in zip(("output", "input", "weight", "bias"), got, want):
+        err = float((u - v).abs().max())
+        assert err <= 1e-5 * float(v.abs().max()), (name, err)
+    outer = got[2][:, :, (0, 2)]
+    assert torch.equal(outer, torch.zeros_like(outer))
+
+
+@pytest.mark.parametrize("mode,count,digest", [
+    ("snv", 316, "2fafcabe78e2397421245ebe7ae24e599012bfe0d4c5cd3b9645ec33fb3d1553"),
+    ("indel", 170, "583cc196dc6c529ab2e5d362f8e6086591a3b711d32e65e53cf2f191146ab322"),
+])
+def test_cvt_state_dict_keeps_its_keys_and_shapes(mode, count, digest):
+    """The flagship CvT's ``state_dict``: the JAX parameter tree's keys and
+    shapes, in the order the checkpoints hold them (the digest of
+    ``key:shape`` lines pins it)."""
+    config = tcvt.SNV_CVT_CONFIG if mode == "snv" else tcvt.INDEL_CVT_CONFIG
+    state = tcvt.CvT(config).state_dict()
+    jc = jcvt.SNV_CVT_CONFIG if mode == "snv" else jcvt.INDEL_CVT_CONFIG
+    want = params_from_jax(_numpy_tree(jcvt.init(jax.random.PRNGKey(0), jc)), "cvt", config)
+    assert {k: tuple(v.shape) for k, v in state.items()} == \
+        {k: tuple(v.shape) for k, v in want.items()}
+    lines = "\n".join(f"{k}:{tuple(v.shape)}" for k, v in state.items())
+    assert (len(state), hashlib.sha256(lines.encode()).hexdigest()) == (count, digest)
 
 
 @pytest.mark.parametrize("mode", ["snv", "indel"])

@@ -9,14 +9,11 @@ offset, the first step is already a replay, each step returns a tensor of its
 own, and the gradients stay the graph's buffers.  A new batch shape captures
 once more.
 
-The two trainers run with cuDNN held to its deterministic algorithms.  By
-default cuDNN takes for the CvT's 1x1 convolutions and stage embeds a
-weight-gradient algorithm (``wgrad_alg0_engine``) that it documents as not
-deterministic, so two eager steps from one state already differ: on an
-H100, by up to 8e-5 of a leaf's largest value over five steps, since
-AdamW's first steps move a value by about the learning rate whatever its
-gradient's size, and a gradient near 0 can come out with either sign.  With the same deterministic kernels on both
-sides, the graph and the eager step agree to 1e-6.
+The step runs no cuDNN kernel: the CvT's convolutions are cuBLAS GEMMs
+over its tokens and its depthwise projections the hand-written pair, and
+every kernel of the step sums in an order fixed by the shapes.  So two
+replays of the graph from one snapshot leave the leaves equal bit for bit,
+and the graph and the eager step agree to 1e-6.
 
 The spans and counters of a capture are checked on a step of their own,
 under a CUDA-only profile as in the benchmark's traced window, with cuDNN's
@@ -69,15 +66,6 @@ def _rel(a, b):
 def runs():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        return _run_both()
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
-
-
-def _run_both():
     tc = TrainConfig(dropout_rate=0.3)
     graphed = DualTrainer("snv", tc, device="cuda")
     eager = DualTrainer("snv", tc, device="cuda")
@@ -181,3 +169,25 @@ def test_a_new_batch_shape_captures_once_more():
             trainer.step(*_batch(rows, seed), generator=gen)
     assert _new_counts(before) == {"train.captures": 3, "train.replays": 5}
     assert trainer._graph.inputs[0].shape[0] == 32
+
+
+def test_two_replays_from_one_snapshot_give_bit_equal_leaves():
+    """The flagship step as the benchmark's training cell runs it (800
+    rows): restored to one snapshot of the leaves,
+    AdamW's state and the generator, two replays of the graph leave every
+    leaf equal bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    trainer = DualTrainer("snv", TrainConfig(dropout_rate=0.3), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    batch = _batch(800, 11)
+    trainer.step(*batch, generator=gen)   # the capture, then its first replay
+    saved = trainer._snapshot(gen)
+    leaves = []
+    for _ in range(2):
+        trainer._restore(saved, gen)
+        trainer.step(*batch, generator=gen)
+        torch.cuda.synchronize()
+        leaves.append({k: t.detach().clone() for k, t in trainer.tensors.items()})
+    assert trainer._graph is not None and len(leaves[0]) == len(trainer.tensors)
+    assert [k for k in leaves[0] if not torch.equal(leaves[0][k], leaves[1][k])] == []
