@@ -115,3 +115,21 @@ def test_one_layer_name_per_layer():
     for m in MAN["per_layer"]:
         by_layer.setdefault(m["layer"].split(" ")[0], set()).add(m["layer"])
     assert all(len(v) == 1 for v in by_layer.values())
+
+
+def test_the_genome_cell_and_its_metrics():
+    """The genome cell reports call_cand_per_s and its four per-layer
+    metrics, and no cell reports the training metrics that read nothing
+    since the step became one CUDA graph."""
+    cell = CELLS["ont_flagship.genome_call"]
+    assert (cell["config"], cell["traffic"], cell["chips"]) == ("ont_flagship", "genome_call", 1)
+    e2e, layer = run.cell_metrics(MAN, cell["name"])
+    assert {m["name"] for m in e2e} == {"call_cand_per_s", "setup_s"}
+    assert {m["name"] for m in layer} == {"decode.worker_s_per_kcand", "postcall.s_per_kcand",
+                                          "device_idle.call", "engine.useful_rows_pct"}
+    assert all(m["moves"] == "call_cand_per_s" and m["workloads"] == [cell["name"]]
+               for m in layer)
+    names = {m["name"] for m in MAN["per_layer"]}
+    assert not names & {"train.forward_ms_per_step", "train.backward_ms_per_step",
+                        "train.optim_ms_per_step"}
+    assert "train.replay_ms_per_step" in names
