@@ -580,8 +580,10 @@ def _apply_chunk_filters(pipe, chunk, res, apply_hap_filter, apply_postfilter, a
         if enable_realign:
             from clairs_to_tpu_torch.postcall.realignment import realign_filter
 
-            n_re = realign_filter(pipe.bam_path, pipe.fasta, pass_rows,
-                                  window=getattr(pe, "_win", None))
+            with pipe._stage("realign_filter", chunk):
+                n_re = realign_filter(pipe.bam_path, pipe.fasta, pass_rows,
+                                      window=getattr(pe, "_win", None),
+                                      metrics=pipe.metrics)
             if n_re:
                 print(f"[INFO] Realignment filter failed {n_re} call(s)")
             pass_rows = [r for r in pass_rows if r["FILTER"] == "PASS"]

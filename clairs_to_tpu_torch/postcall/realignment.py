@@ -82,6 +82,7 @@ def realign_filter(
     qual_threshold: float = QUAL_THRESHOLD,
     min_mq: int = cfg.MIN_MQ,
     window=None,
+    metrics=None,
 ):
     """Apply the realignment filter to SNV row dicts in place.
 
@@ -90,9 +91,18 @@ def realign_filter(
     Without it, each site re-fetches through the pure-Python reader,
     which is far slower on a deep chunk.
 
-    Returns the number of rows failed."""
+    ``metrics``: optional RunMetrics, which counts the calls checked
+    (``realign_sites``), their reads (``realign_reads``), consensus
+    haplotypes (``realign_haplotypes``) and the calls failed
+    (``realign_failed``).
+
+    Returns the number of rows failed.  Raises with the compiler's message
+    when the realignment library does not build: without it no call would
+    be realigned."""
     if not realign.available():
-        return 0
+        raise RuntimeError("the realignment filter needs the realignment library, which "
+                           f"did not build: {realign.LIB.error}")
+    counts = {"realign_sites": 0, "realign_reads": 0, "realign_haplotypes": 0}
     bam = None
     n_failed = 0
     for row in rows:
@@ -133,6 +143,9 @@ def realign_filter(
         ref_window = fasta.fetch(ctg, ref_lo, ref_hi)
         seqs = [seq for (_p, _c, seq) in ori_info]
         haps = realign.get_consensus(ref_window, seqs)
+        counts["realign_sites"] += 1
+        counts["realign_reads"] += len(seqs)
+        counts["realign_haplotypes"] += len(haps)
         new_pos, new_cigars = realign.realign_reads(
             ref_window, ref_lo, seqs, haps
         )
@@ -147,6 +160,10 @@ def realign_filter(
             row["QUAL"] = 0.0
             row["FILTER"] = "LowQual;Realignment"
             n_failed += 1
+    if metrics is not None:
+        for name, n in counts.items():
+            metrics.count(name, n)
+        metrics.count("realign_failed", n_failed)
     return n_failed
 
 
